@@ -127,7 +127,7 @@ class GPT2Adapter(ModelAdapter):
         self.cfg = config
         self.model = model
         self.device = model.wte.weight.device
-        self.dtype = model.wte.weight.dtype
+        self.dtype = config.dtype   # compute type; the weights stay fp32
         self.n_layers = config.n_layer
         self.n_heads = self.n_kv_heads = config.n_head
         self.head_dim = config.n_embd // config.n_head
@@ -145,7 +145,7 @@ class GPT2Adapter(ModelAdapter):
         if k_ctx.shape[1] != start:
             raise ValueError(f"prefill_ctx at start={start} got "
                              f"{k_ctx.shape[1]} cached positions")
-        x = m.wte(tok) + m.wpe.weight[start:start + T]
+        x = m.wte(tok) + m.wpe(torch.arange(start, start + T, device=self.device))
         ks, vs = [], []
         for li, blk in enumerate(m.h):
             q, k, v = blk.attn.qkv(blk.ln_1(x))                # [T, H, D]

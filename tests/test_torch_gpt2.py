@@ -2,7 +2,11 @@
 
 The JAX package's weights are carried across with ``load_flax_params`` and
 both forwards run on the same seeded token ids, fp32, to 1e-4 on the logits
-(12 stacked fp32 products and norms in another summation order).
+(12 stacked fp32 products and norms in another summation order). Under a
+bf16 config both keep fp32 parameters and return bf16 logits; those agree
+to BF16_LOGIT_TOL, which is set by rounding order: each framework rounds
+its bf16 products, norms and gelu at other places, and on this model that
+alone gives up to about 0.04 at |logit| <= 4.2.
 """
 
 import jax
@@ -15,6 +19,7 @@ from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu_torch.models import gpt2 as tgpt2
 
 TOL = 1e-4
+BF16_LOGIT_TOL = 0.05
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +40,25 @@ def test_logits_match_flax_forward(carried):
         got = tgpt2.forward(tcfg, model, torch.from_numpy(idx))
     assert got.shape == (2, 16, tcfg.vocab_size) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
+
+
+def test_bf16_config_keeps_fp32_params_and_gives_bf16_logits_like_flax():
+    jcfg = jgpt2.GPT2Config.tiny()                        # bf16, as by default
+    params = jax.tree.map(np.asarray, jax.jit(
+        lambda key: jgpt2.init_params(jcfg, key))(jax.random.PRNGKey(3)))
+    tcfg = tgpt2.GPT2Config.tiny()
+    assert tcfg.dtype == torch.bfloat16
+    model = tgpt2.load_flax_params(tgpt2.GPT2(tcfg, device="cpu"), params)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(np.asarray(x).dtype == np.float32 for x in jax.tree.leaves(params))
+    idx = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 16))
+    ref = jax.jit(lambda p, i: jgpt2.forward(jcfg, p, i))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(idx, dtype=jnp.int32))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(idx))
+    assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= BF16_LOGIT_TOL, err
 
 
 def test_loss_matches_flax_loss(carried):
