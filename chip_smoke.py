@@ -12,15 +12,19 @@ script exits non-zero:
   2. build   compile ray_tpu_torch/csrc with nvcc, one process per source,
              all at once (timed); show ptxas's register / spill report
   3. kernel  flash_attn_fwd against its plain PyTorch version on the card,
-             o and lse, fp32 and bf16, ragged and aligned lengths; times of
-             the kernel, the plain version and SDPA (yardstick only) at the
-             serving and training shapes, beside the least time the card
-             could take
+             o and lse, fp32 and bf16, head dims 32, 64 and 128, ragged and
+             aligned lengths, bitwise repeatable; times of the kernel, the
+             plain version and SDPA (yardstick only) at the serving and
+             training shapes, beside the least time the card could take,
+             with the kernel's achieved TFLOP/s, its share of that bound
+             and its ratio to SDPA
   4. bwd     flash_attn_bwd's dq and dk/dv kernels against their plain
              version on the card (and, in fp32, against autograd of the
-             plain attention), fp32 and bf16, ragged and aligned lengths,
-             bitwise repeatable; times at the training shapes beside the
-             bound, the plain backward and SDPA's backward (yardstick only)
+             plain attention), fp32 and bf16, head dims 32, 64 and 128,
+             ragged and aligned lengths, bitwise repeatable; times at the
+             training shapes beside the bound, the plain backward and
+             SDPA's backward (yardstick only), with achieved TFLOP/s,
+             share of the bound and ratio to SDPA's backward
   5. model   GPT-2-124M forward at (4, 512) on the card against the same
              weights' forward on the CPU plain path
   6. serve   the serving path: LLMEngine over build_adapter("gpt2") at
@@ -78,7 +82,10 @@ GREEDY_TOL = 1e-3  # a card-chosen greedy token vs the CPU's max logit
 # moves a weight by up to 2 * lr) plus 1e-6 of rounding.
 TRAIN_REL_TOL = 1e-4
 
-KERNEL_SHAPES = [(1, 12, t, 64) for t in (1, 7, 100, 512, 1024)] + [(2, 4, 128, 32)]
+# correctness cases (every one in fp32 and bf16): GPT-2's head dim at
+# ragged and aligned lengths, and the kernels' other head dims, 32 and 128
+KERNEL_SHAPES = ([(1, 12, t, 64) for t in (1, 7, 100, 512, 1024)] + [(2, 4, 128, 32)]
+                 + [(1, 4, t, d) for d in (32, 128) for t in (1, 7, 100, 512)])
 TRAIN_SHAPE = (16, 12, 1024, 64)   # GPT-2-124M attention at B = 16, T = 1024
 # (shape, dtype) pairs timed: the serving widths (fp32 and bf16 prompts) and
 # the training shapes (bf16, as the bf16 train step gives them)
@@ -91,6 +98,12 @@ HEADLINE = (TRAIN_SHAPE, torch.bfloat16)  # the training path's shape and type
 # the inputs' type (fp32 outside the tensor cores; bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# which design runs each kernel, by dtype (csrc/: the entry points choose)
+TENSOR_CORES = "sm90 wgmma+TMA, bf16"
+CUDA_CORES = "CUDA cores, fp32"
+DESIGN = {"flash_attn_fwd": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES},
+          "flash_attn_bwd_dq": {"bfloat16": CUDA_CORES, "float32": CUDA_CORES},
+          "flash_attn_bwd_dkv": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES}}
 
 SERVE_WIDTH = (12, 12, 768, 50257, 1024)  # layers, heads, width, vocab, context
 TRAIN_BATCH = (16, 1024)      # bench.py's GPT-2-124M batch
@@ -109,19 +122,23 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Median time of one call on the card (CUDA events around each)."""
+    """Time of one call on the card: CUDA events around a window of `iters`
+    back-to-back calls, divided by `iters`; the median of three windows.
+    A window keeps the card's queue full, so the host's time to launch a
+    call is hidden wherever it is shorter than the call itself."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 
@@ -135,6 +152,18 @@ def norm_err(got, ref) -> float:
     return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
 
 
+def attention_flops(shape, per_pair: int) -> int:
+    """FLOP of `per_pair` * d per visible (query, key) pair, causal."""
+    b, h, t, d = shape
+    return per_pair * d * b * h * t * (t + 1) // 2
+
+
+def rates(ms: float, shape, per_pair: int, bound_ms: float, library_ms: float):
+    """Achieved TFLOP/s, share of the bound and ratio to the library call."""
+    return {"tflops": attention_flops(shape, per_pair) / (ms * 1e-3) / 1e12,
+            "bound_share": bound_ms / ms, "vs_library": ms / library_ms}
+
+
 def attention_bound(shape, dtype):
     """Least time (ms) for causal attention on these inputs: each of q, k,
     v read once and o, lse written once over HBM bandwidth, against the
@@ -144,7 +173,7 @@ def attention_bound(shape, dtype):
     bh = b * h
     esize = torch.finfo(dtype).bits // 8
     nbytes = 4 * bh * t * d * esize + bh * t * 4
-    flops = 2 * 2 * d * bh * t * (t + 1) // 2
+    flops = attention_flops(shape, 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -163,7 +192,7 @@ def attention_bwd_bound(shape, dtype, kernel: str):
     esize = torch.finfo(dtype).bits // 8
     outputs = 1 if kernel == "dq" else 2
     nbytes = (4 + outputs) * bh * t * d * esize + 2 * bh * t * 4
-    flops = (6 if kernel == "dq" else 8) * d * bh * t * (t + 1) // 2
+    flops = attention_flops(shape, 6 if kernel == "dq" else 8)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -193,15 +222,20 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     log(f"[build] {sorted(libs)} in {dt:.1f} s")
     # ptxas reports each instance as "Compiling entry function '<mangled>'"
-    # followed by its spill and register lines
+    # followed by its spill and register lines: the CUDA-core kernels are
+    # templates on <type, d>, the bf16 tensor-core ones on <d>
     entry = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+    entry90 = re.compile(r"(flash_(?:fwd|bwd_dkv)_sm90_kernel)ILi(\d+)E")
     for name in sorted(libs):
         label = name
         for line in _cuda.build_log(name).splitlines():
-            found = entry.search(line)
+            found, found90 = entry.search(line), entry90.search(line)
             if found:
                 kernel, dtype, d = found.groups()
                 label = f"{kernel}<{'float' if dtype == 'f' else 'bf16'}, {d}>"
+            elif found90:
+                kernel, d = found90.groups()
+                label = f"{kernel}<bf16, {d}>"
             elif "registers" in line or "spill" in line:
                 log(f"[build] {label}: {line.split(':', 1)[-1].strip()}")
     return dt
@@ -220,7 +254,9 @@ def phase_kernel(card: str):
         q, k, v = (torch.randn(shape, generator=gen).to(DEVICE, dtype)
                    for _ in range(3))
         o, lse = attention.flash_causal_attention_fwd(q, k, v)
+        o2, lse2 = attention.flash_causal_attention_fwd(q, k, v)
         torch.cuda.synchronize()
+        repeatable = torch.equal(o, o2) and torch.equal(lse, lse2)
         o_ref, lse_ref = attention.plain_causal_attention_fwd(
             q.float(), k.float(), v.float())
         if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
@@ -229,7 +265,9 @@ def phase_kernel(card: str):
         err_lse = (lse - lse_ref).abs().max().item()
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
         case = {"shape": list(shape), "dtype": dtype_name(dtype),
-                "err_o": err_o, "err_lse": err_lse, "tol": tol}
+                "design": DESIGN["flash_attn_fwd"][dtype_name(dtype)],
+                "err_o": err_o, "err_lse": err_lse, "tol": tol,
+                "repeatable": repeatable}
         if (shape, dtype) in TIMED_FWD:
             bound_ms, bound_by = attention_bound(shape, dtype)
             case.update(
@@ -238,18 +276,21 @@ def phase_kernel(card: str):
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True)),
                 bound_ms=bound_ms, bound_by=bound_by)
+            case.update(rates(case["ms"], shape, 4, bound_ms, case["library_ms"]))
         log(f"[kernel] {json.dumps(case)}")
-        if err_o > tol or err_lse > tol:
+        if err_o > tol or err_lse > tol or not repeatable:
             raise AssertionError(f"flash_attn_fwd disagrees with its plain "
-                                 f"version: {case}")
+                                 f"version or is not repeatable: {case}")
         cases.append(case)
-        del q, k, v, o, lse, o_ref, lse_ref
+        del q, k, v, o, lse, o2, lse2, o_ref, lse_ref
     for c in cases:
         if "ms" in c:
-            log(f"[kernel] flash_attn_fwd {c['shape']} {c['dtype']}: "
+            log(f"[kernel] flash_attn_fwd {c['shape']} {c['dtype']} ({c['design']}): "
                 f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, SDPA "
                 f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f} by "
-                f"{c['bound_by']}) on {card}")
+                f"{c['bound_by']}); {c['tflops']:.1f} TFLOP/s, "
+                f"{c['bound_share']:.3f} of the bound, {c['vs_library']:.2f}x SDPA "
+                f"on {card}")
     return cases
 
 
@@ -278,6 +319,8 @@ def phase_bwd(card: str):
             q.float(), k.float(), v.float(), o.float(), lse, do.float())
         names = ("dq", "dk", "dv")
         case = {"shape": list(shape), "dtype": dtype_name(dtype),
+                "design": {n: DESIGN[n][dtype_name(dtype)] for n in
+                           ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")},
                 "repeatable": repeatable,
                 "err": {n: norm_err(g, r) for n, g, r in zip(names, grads, ref)},
                 "abs_err": {n: (g.float() - r).abs().max().item()
@@ -306,6 +349,9 @@ def phase_bwd(card: str):
                     q, k, v, o, lse, do)),
                 library_ms=cuda_ms(lambda: torch.autograd.grad(
                     sdpa_out, (qs, ks, vs), do, retain_graph=True)))
+            for kernel, per_pair in (("dq", 6), ("dkv", 8)):
+                case[kernel].update(rates(case[kernel]["ms"], shape, per_pair,
+                                          case[kernel]["bound_ms"], case["library_ms"]))
             del delta, qs, ks, vs, sdpa_out
         log(f"[bwd] {json.dumps(case)}")
         finite = all(torch.isfinite(g).all() for g in grads)
@@ -317,10 +363,13 @@ def phase_bwd(card: str):
         del q, k, v, do, o, lse, o2, lse2, grads, again, ref
     for c in cases:
         if "dq" in c:
-            log(f"[bwd] {c['shape']} {c['dtype']}: dq {c['dq']['ms']:.4f} ms "
-                f"(bound {c['dq']['bound_ms']:.4f} by {c['dq']['bound_by']}), "
-                f"dk/dv {c['dkv']['ms']:.4f} ms (bound {c['dkv']['bound_ms']:.4f} "
-                f"by {c['dkv']['bound_by']}); whole backward {c['bwd_ms']:.4f} ms, "
+            for kernel, name in (("dq", "flash_attn_bwd_dq"), ("dkv", "flash_attn_bwd_dkv")):
+                r = c[kernel]
+                log(f"[bwd] {name} {c['shape']} {c['dtype']} ({c['design'][name]}): "
+                    f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}); "
+                    f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the bound, "
+                    f"{r['vs_library']:.2f}x SDPA's whole backward on {card}")
+            log(f"[bwd] {c['shape']} {c['dtype']}: whole backward {c['bwd_ms']:.4f} ms, "
                 f"plain {c['plain_ms']:.4f}, SDPA backward {c['library_ms']:.4f} "
                 f"on {card}")
     torch.cuda.empty_cache()
@@ -610,11 +659,17 @@ def main() -> int:
         "launches_by_path": {"train": train["launches"][0], "serve": serve_launches},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
+        "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
+                                         if c["dtype"] == dt)
+                                 for dt in ("float32", "bfloat16")},
         "ms": fwd_head["ms"],
         "plain_ms": fwd_head["plain_ms"],
         "bound_ms": fwd_head["bound_ms"],
         "bound_by": fwd_head["bound_by"],
         "library_ms": fwd_head["library_ms"],
+        "design": DESIGN["flash_attn_fwd"],
+        "tflops": fwd_head["tflops"],
+        "bound_share": fwd_head["bound_share"],
         "at": dict(at, max_abs_err_over="o and lse, every fp32 case",
                    library="SDPA forward"),
         "cases": fwd_cases,
@@ -628,11 +683,17 @@ def main() -> int:
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             "launches": train["launches"][1 if kernel == "dq" else 2],
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
+            "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
+                                             if c["dtype"] == dt for o in outputs)
+                                     for dt in ("float32", "bfloat16")},
             "ms": bwd_head[kernel]["ms"],
             "plain_ms": bwd_head["plain_ms"],
             "bound_ms": bwd_head[kernel]["bound_ms"],
             "bound_by": bwd_head[kernel]["bound_by"],
             "library_ms": bwd_head["library_ms"],
+            "design": DESIGN[name],
+            "tflops": bwd_head[kernel]["tflops"],
+            "bound_share": bwd_head[kernel]["bound_share"],
             "at": dict(at, max_abs_err_over=f"{'/'.join(outputs)}, every fp32 case",
                        plain="plain_causal_attention_bwd: dq, dk and dv together",
                        library="autograd.grad of an SDPA output: dq, dk and dv "

@@ -9,12 +9,11 @@
 //   p  = exp(q_i . k_j / sqrt(d) - lse_i)
 //   ds = p * (do_i . v_j - delta_i)
 // and
-//   flash_bwd_dq_kernel   dq_i = (1/sqrt(d)) sum_j ds * k_j      (3 products)
-//   flash_bwd_dkv_kernel  dv_j = sum_i p * do_i,                 (4 products)
-//                         dk_j = sum_i ds * (q_i / sqrt(d))
-// q is pre-scaled by 1/sqrt(d) before the product, as in the forward, so
-// dk carries the factor through q. Every product and sum is in fp32; the
-// gradients are written in q's type (float32 or bfloat16).
+//   dq kernel     dq_i = (1/sqrt(d)) sum_j ds * k_j              (3 products)
+//   dk/dv kernel  dv_j = sum_i p * do_i,                         (4 products)
+//                 dk_j = (1/sqrt(d)) sum_i ds * q_i
+// Every sum is in fp32; the gradients are written in q's type (float32 or
+// bfloat16).
 //
 // Layouts: q, k, v, do, dq, dk, dv are contiguous (bh, t, d); lse and delta
 // are (bh, t) fp32 (the TPU's (bh, 1, t) only served Mosaic's tiling rule).
@@ -27,8 +26,8 @@
 //     rows, so no block adds into another's rows: no atomics, no second
 //     reduction pass.
 //   - No divisibility rule: t is any length >= 1. Rows past t are computed
-//     on zeros and never stored; their lse and delta are never read (p is
-//     forced to 0 there); keys past t are zero-filled and masked.
+//     on zeros and never stored; p is forced to 0 for queries past t, so
+//     their lse and delta never matter; keys past t are zero-filled.
 //   - The dk/dv kernel's first query row is its tile's first key row,
 //     computed from rows, not from a floored tile ratio.
 //
@@ -36,24 +35,54 @@
 // 1024, d = 64, bf16): the dq kernel does 3 products of 2*d FLOP per causal
 // pair, the dk/dv kernel 4, against about 7*bh*t*d elements of traffic; at
 // t = 1024 that is hundreds of FLOP per byte, so arithmetic sets the least
-// time, not HBM. This first version, like the forward, does the products
-// on the CUDA cores in fp32 (67 TFLOP/s peak, not the tensor cores'
-// 989): four threads share a row, split the head dimension, and meet
-// through warp shuffles; the tiles of the other operand sit in shared
-// memory as fp32 and are read without bank conflicts (the four threads of
-// a row read four consecutive words; the eight rows of a warp read the
-// same words, a broadcast). Tiles of 32 rows keep both kernels under the
-// 48 KB of static shared memory at d = 128 in fp32 (two 32 x 128 fp32
-// tiles are 32 KB). Moving the products onto wgmma with TMA-fed tiles is
-// later work; see PERF.md for the measured times against the bound.
+// time, not HBM.
+//
+// Designs:
+//
+// dk/dv, bfloat16 -> flash_bwd_dkv_sm90_kernel, on the tensor cores: the
+//   transposed form of FlashAttention-2/3's backward. One block per
+//   (128-key tile, bh), two warpgroups of 64 key rows; k and v sit in
+//   shared memory for the whole walk, dk and dv accumulate in registers in
+//   fp32. Tiles of 64 query rows (32 at d = 128, to keep both accumulators
+//   and the scores within 255 registers) of q and do stream through a
+//   two-stage TMA ring: thread 0 issues the next tile's loads before the
+//   block computes on this one, and the warpgroups meet at a barrier after
+//   each tile (a three-stage ring with per-stage release barriers, which
+//   frees them from that lockstep, measured slower here; see PERF.md).
+//   Each warpgroup reads lse and delta for its columns straight from
+//   global memory. Per tile: S^T = k q^T and dP^T = v do^T
+//   (wgmma, both operands in shared memory), P^T = exp(S^T scale - lse),
+//   dS^T = P^T (dP^T - delta), then dv += P^T do and dk += dS^T q with P^T
+//   and dS^T rounded to bf16 in registers as the A operand and do, q
+//   MN-major from shared memory. The four products are committed as
+//   separate groups, so P^T is computed while dP^T runs and dS^T while
+//   dv's product runs. dk takes its 1/sqrt(d) once, in fp32, at
+//   the end. Only tiles that cross the diagonal or row t are masked; a
+//   warpgroup whose keys all lie past the tile's queries skips it.
+//
+// dq (both dtypes) and dk/dv in float32 -> flash_bwd_dq_kernel and
+//   flash_bwd_dkv_kernel, on the CUDA cores in fp32 (67 TFLOP/s peak, not
+//   the tensor cores' 989): four threads share a row, split the head
+//   dimension, and meet through warp shuffles; the tiles of the other
+//   operand sit in shared memory as fp32 and are read without bank
+//   conflicts (the four threads of a row read four consecutive words; the
+//   eight rows of a warp read the same words, a broadcast). q is
+//   pre-scaled by 1/sqrt(d), so dk carries the factor through q. Tiles of
+//   32 rows keep both kernels under the 48 KB of static shared memory at d
+//   = 128 in fp32 (two 32 x 128 fp32 tiles are 32 KB). fp32 stays here
+//   because the tensor cores take fp32 only as TF32, which the port's fp32
+//   policy turns off; dq's move to wgmma is the next redesign (PERF.md).
 //
 // Each launch runs on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() so the Python wrapper can
-// raise on a refused launch.
+// synchronise, and returns cudaGetLastError() (or the tensor map's error)
+// so the Python wrapper can raise on a refused launch. The bf16 dk/dv path
+// needs 16-byte-aligned q, k, v and do (TMA); the wrapper checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -284,6 +313,242 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv in bfloat16: wgmma with TMA-fed tiles
+
+constexpr int kKeys90 = 128;     // key rows per block: two warpgroups of 64
+constexpr int kThreads90 = 256;
+constexpr int kStages90 = 2;     // q/do ring
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kQRows = D == 128 ? 32 : 64;   // query rows per tile
+  using KTile = sm90::Tile<kKeys90, D>;
+  using QTile = sm90::Tile<kQRows, D>;
+  static constexpr int kK = 0;
+  static constexpr int kV = KTile::kBytes;
+  static constexpr int kQ = 2 * KTile::kBytes;                 // kStages90 q tiles
+  static constexpr int kDo = kQ + kStages90 * QTile::kBytes;    // kStages90 do tiles
+  static constexpr int kBar = kDo + kStages90 * QTile::kBytes;  // k/v, then per stage
+  static constexpr int kBytes = kBar + 8 * (1 + kStages90) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads90, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int t, float scale,
+                          float scale_log2) {
+  using S = DkvSmem<D>;
+  using KTile = typename S::KTile;
+  using QTile = typename S::QTile;
+  constexpr int kQRows = S::kQRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = base + S::kK;
+  const uint32_t v_s = base + S::kV;
+  const uint32_t kv_bar = base + S::kBar;
+  auto stage_bar = [&](int s) { return kv_bar + 8 * (1 + s); };
+
+  const int wg = threadIdx.x / 128;            // warpgroup: key rows 64*wg ..
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kKeys90;   // tile 0 sees every query: it starts first
+  const int kw0 = k0 + wg * 64;          // this warpgroup's first key
+  // causal: query i sees key j iff i >= j, so the walk starts at row k0
+  const int n_tiles = (t - k0 + kQRows - 1) / kQRows;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages90; ++i) sm90::mbar_init(kv_bar + 8 * i, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(kv_bar, 2 * KTile::kBytes);
+    sm90::tma_load_tile<kKeys90, D>(k_s, &k_map, kv_bar, k0, bh);
+    sm90::tma_load_tile<kKeys90, D>(v_s, &v_map, kv_bar, k0, bh);
+    sm90::mbar_expect_tx(stage_bar(0), 2 * QTile::kBytes);
+    sm90::tma_load_tile<kQRows, D>(base + S::kQ, &q_map, stage_bar(0), k0, bh);
+    sm90::tma_load_tile<kQRows, D>(base + S::kDo, &do_map, stage_bar(0), k0, bh);
+  }
+
+  // this thread's two key rows (see sm90::to_a_frags for the accumulator map)
+  const int row_a = kw0 + warp * 16 + lane / 4;
+  const int row_b = row_a + 8;
+  const int col_in = 2 * (lane % 4);
+  const size_t head = static_cast<size_t>(bh) * t;
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    acc_dk[i] = 0.f;
+    acc_dv[i] = 0.f;
+  }
+
+  sm90::mbar_wait(kv_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages90;
+    const int i0 = k0 + j * kQRows;
+    if (threadIdx.x == 0 && j + 1 < n_tiles) {
+      // the stage of tile j-1: every warpgroup left it at the last barrier
+      const int sn = (j + 1) % kStages90;
+      sm90::mbar_expect_tx(stage_bar(sn), 2 * QTile::kBytes);
+      sm90::tma_load_tile<kQRows, D>(base + S::kQ + sn * QTile::kBytes, &q_map,
+                                     stage_bar(sn), i0 + kQRows, bh);
+      sm90::tma_load_tile<kQRows, D>(base + S::kDo + sn * QTile::kBytes, &do_map,
+                                     stage_bar(sn), i0 + kQRows, bh);
+    }
+    // lse (in log2 units) and delta of this thread's query columns
+    float lse2[kQRows / 4], dlt[kQRows / 4];
+#pragma unroll
+    for (int c = 0; c < kQRows / 8; ++c) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int col = i0 + 8 * c + col_in + v;
+        const bool live = col < t;
+        lse2[2 * c + v] = live ? __ldg(lse + head + col) * sm90::kLog2e : 0.f;
+        dlt[2 * c + v] = live ? __ldg(delta + head + col) : 0.f;
+      }
+    }
+    sm90::mbar_wait(stage_bar(s), (j / kStages90) & 1);
+    __syncwarp();
+    const uint32_t q_s = base + S::kQ + s * QTile::kBytes;
+    const uint32_t do_s = base + S::kDo + s * QTile::kBytes;
+
+    // warpgroup-uniform: does any query of this tile see a key of ours?
+    if (i0 + kQRows - 1 >= kw0) {
+      // S^T = k q^T and dP^T = v do^T: 64 keys x kQRows queries, fp32, as
+      // two groups, so that P^T is computed while dP^T is still running
+      float st[kQRows / 2], dpt[kQRows / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::wgmma_ss(st, KTile::kmajor(k_s, wg * 64, kk), QTile::kmajor(q_s, 0, kk),
+                       kk > 0);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::wgmma_ss(dpt, KTile::kmajor(v_s, wg * 64, kk), QTile::kmajor(do_s, 0, kk),
+                       kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();   // S^T has landed
+      sm90::fence_regs(st);
+
+      // P^T in place; masked where a query precedes the key or lies past t
+      // (only on tiles that cross the diagonal or row t)
+      const bool masked = i0 < kw0 + 63 || i0 + kQRows > t;
+#pragma unroll
+      for (int c = 0; c < kQRows / 8; ++c) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int col = i0 + 8 * c + col_in + v;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int idx = 4 * c + 2 * half + v;
+            float p = sm90::ex2(fmaf(st[idx], scale_log2, -lse2[2 * c + v]));
+            if (masked && (col < (half ? row_b : row_a) || col >= t)) p = 0.f;
+            st[idx] = p;
+          }
+        }
+      }
+
+      // dv += P^T do (A in bf16 from registers, do MN-major), running
+      // while dS^T is computed
+      uint32_t p_frag[kQRows / 16][4], ds_frag[kQRows / 16][4];
+      sm90::to_a_frags<kQRows>(st, p_frag);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk) {
+        sm90::wgmma_rs(acc_dv, p_frag[kk], QTile::mnmajor(do_s, kk));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();   // dP^T has landed
+      sm90::fence_regs(dpt);
+
+      // dS^T = P^T (dP^T - delta), then dk += dS^T q
+#pragma unroll
+      for (int c = 0; c < kQRows / 8; ++c) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int idx = 4 * c + 2 * half + v;
+            dpt[idx] = st[idx] * (dpt[idx] - dlt[2 * c + v]);
+          }
+        }
+      }
+      sm90::to_a_frags<kQRows>(dpt, ds_frag);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk) {
+        sm90::wgmma_rs(acc_dk, ds_frag[kk], QTile::mnmajor(q_s, kk));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc_dv);
+      sm90::fence_regs(acc_dk);
+    }
+    __syncthreads();   // stage s is free for tile j + 2
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= t) continue;
+    const size_t at = (head + row) * D + col_in;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int i = 4 * c + 2 * half;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * c) =
+          __floats2bfloat162_rn(acc_dk[i] * scale, acc_dk[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * c) =
+          __floats2bfloat162_rn(acc_dv[i], acc_dv[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_sm90(const Args& a) {
+  using S = DkvSmem<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int rc = sm90::make_tile_map(&q_map, a.q, a.bh, a.t, D, S::kQRows);
+  if (rc == 0) rc = sm90::make_tile_map(&k_map, a.k, a.bh, a.t, D, kKeys90);
+  if (rc == 0) rc = sm90::make_tile_map(&v_map, a.v, a.bh, a.t, D, kKeys90);
+  if (rc == 0) rc = sm90::make_tile_map(&do_map, a.dout, a.bh, a.t, D, S::kQRows);
+  // above the default 48 KB of dynamic shared memory
+  if (rc == 0) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_bwd_dkv_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::kBytes));
+  }
+  if (rc != 0) return rc;
+  const double scale = 1.0 / sqrt(static_cast<double>(D));
+  const dim3 grid((a.t + kKeys90 - 1) / kKeys90, a.bh);
+  flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads90, S::kBytes, a.stream>>>(
+      q_map, k_map, v_map, do_map, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.t, static_cast<float>(scale),
+      static_cast<float>(scale * sm90::kLog2e));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: dq on the CUDA cores, dk/dv on the tensor cores
+int dispatch_bf16(const Args& a, int d, int which) {
+  using T = __nv_bfloat16;
+  switch (d) {
+    case 32: return which == 0 ? launch_dq<T, 32>(a) : launch_dkv_sm90<32>(a);
+    case 64: return which == 0 ? launch_dq<T, 64>(a) : launch_dkv_sm90<64>(a);
+    case 128: return which == 0 ? launch_dq<T, 128>(a) : launch_dkv_sm90<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // which = 0: dq kernel, 1: dk/dv kernel
 template <typename T>
 int dispatch_dim(const Args& a, int d, int which) {
@@ -301,7 +566,7 @@ int dispatch(const Args& a, int d, int dtype, int which) {
   }
   switch (dtype) {
     case 0: return dispatch_dim<float>(a, d, which);
-    case 1: return dispatch_dim<__nv_bfloat16>(a, d, which);
+    case 1: return dispatch_bf16(a, d, which);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -15,10 +15,18 @@ The public surface of ``ray_tpu/ops/attention.py``, with the same layouts:
 Dispatch is by the tensor's device, with no fallback: a CUDA tensor always
 launches the kernels (``csrc/flash_attn_fwd.cu`` forward,
 ``csrc/flash_attn_bwd.cu`` dq and dk/dv; the wrappers raise on a dtype,
-head dim or layout the kernels do not take), a CPU tensor always takes the
-plain versions. The JAX package's rule (kernel only on a TPU, only for
-T >= 256 with T % 128 == 0) was a TPU tiling constraint; the CUDA kernels
-mask their own ragged edges and take every T >= 1.
+head dim, layout or alignment the kernels do not take), a CPU tensor always
+takes the plain versions. The JAX package's rule (kernel only on a TPU, only
+for T >= 256 with T % 128 == 0) was a TPU tiling constraint; the CUDA
+kernels mask their own ragged edges and take every T >= 1.
+
+Inside the C entry points the kernel is chosen by the dtype, one kernel per
+dtype: bfloat16 runs the forward and dk/dv on the tensor cores (wgmma on
+TMA-fed tiles); float32, which the tensor cores take only as TF32 (turned
+off by the port's fp32 policy), and the dq kernel in both dtypes run on the
+CUDA cores in fp32. TMA needs 16-byte-aligned tensors, so every kernel
+input must start on a 16-byte boundary (a freshly allocated tensor
+does).
 
 The gradient is :class:`FlashCausalAttention`, the counterpart of the JAX
 package's ``custom_vjp`` around ``_flash``: the forward saves q, k, v, o
@@ -158,10 +166,18 @@ def _check_kernel_inputs(q, k, v) -> None:
             f"flash_attn_fwd takes head dim {_KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attn_fwd needs contiguous q, k and v")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_aligned(name, x)
     b, h, t, _ = q.shape
     if t < 1 or not 1 <= b * h <= 65535:
         raise ValueError(f"flash_attn_fwd takes T >= 1 and 1 <= B*H <= 65535, "
                          f"got {tuple(q.shape)}")
+
+
+def _check_aligned(name, x) -> None:
+    if x.data_ptr() % 16:
+        raise ValueError(f"the attention kernels need {name} to start on a "
+                         f"16-byte boundary (TMA), got address {x.data_ptr():#x}")
 
 
 def _check_rows(name, x, q) -> None:
@@ -182,6 +198,7 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, o=None) -> None:
                 f"q {tuple(q.shape)} {q.dtype} {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"flash_attn_bwd needs a contiguous {name}")
+        _check_aligned(name, x)
     _check_rows("lse", lse, q)
     if delta is not None:
         _check_rows("delta", delta, q)

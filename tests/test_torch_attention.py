@@ -102,6 +102,7 @@ def test_other_devices_raise_instead_of_falling_back():
     ("not_contiguous", ValueError),
     ("shape_mismatch", ValueError),
     ("rank_3", ValueError),
+    ("misaligned", ValueError),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
     q = torch.zeros((1, 2, 8, 64))
@@ -116,6 +117,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
         k = torch.zeros((1, 2, 9, 64))
     elif case == "rank_3":
         q = k = v = torch.zeros((2, 8, 64))
+    elif case == "misaligned":   # contiguous, 4 bytes past a 16-byte boundary
+        q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     with pytest.raises(exc):
         tattn._check_kernel_inputs(q, k, v)
 

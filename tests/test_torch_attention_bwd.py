@@ -10,12 +10,15 @@ attention. The kernels themselves run on the card only and are held
 against this plain version by ``chip_smoke.py``.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ray_tpu.ops import attention as jattn
 from ray_tpu_torch.ops import attention as tattn
 
@@ -117,7 +120,7 @@ def test_nothing_is_saved_without_grad():
 
 @pytest.mark.parametrize("case", [
     "float16", "head_dim_48", "do_not_contiguous", "o_shape", "lse_dtype",
-    "lse_shape", "delta_shape",
+    "lse_shape", "delta_shape", "do_misaligned",
 ])
 def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(case):
     q = torch.zeros((1, 2, 8, 64))
@@ -140,6 +143,8 @@ def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(case):
         lse = torch.zeros((1, 2, 8, 1))
     elif case == "delta_shape":
         delta = torch.zeros((1, 2, 9))
+    elif case == "do_misaligned":   # contiguous, 4 bytes past a 16-byte boundary
+        do = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     with pytest.raises(exc):
         tattn._check_bwd_inputs(q, k, v, do, lse, delta, o=o)
 
@@ -149,3 +154,70 @@ def test_other_devices_raise_instead_of_falling_back():
     lse = torch.empty((1, 1, 4), device="meta")
     with pytest.raises(ValueError, match="no causal attention"):
         tattn.flash_causal_attention_bwd(q, q, q, q, lse, q)
+
+
+def _sm90_rounding(q, k, v, do):
+    """The bf16 tensor-core kernels' arithmetic on the CPU, in fp32 on
+    bf16-valued inputs (B, H, T, D): scores and sums in fp32, the scale
+    applied to the scores, p (forward and dk/dv) and ds rounded to bf16
+    before the second products, outputs rounded to bf16. Returns o, lse,
+    dk, dv."""
+    d, t = q.shape[-1], q.shape[-2]
+    scale = 1.0 / math.sqrt(d)
+    bf16 = lambda x: x.to(torch.bfloat16).float()
+    s = torch.einsum("bhtd,bhsd->bhts", q, k) * scale
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), tattn.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = bf16(torch.einsum("bhts,bhsd->bhtd", bf16(p), v) / l)
+    lse = (m + torch.log(l)).squeeze(-1)
+    delta = (o * do).sum(dim=-1, keepdim=True)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.einsum("bhtd,bhsd->bhts", do, v) - delta)
+    dv = bf16(torch.einsum("bhts,bhtd->bhsd", bf16(p), do))
+    dk = bf16(torch.einsum("bhts,bhtd->bhsd", bf16(ds), q) * scale)
+    return o, lse, dk, dv
+
+
+def _bf16_inputs(shape=(1, 2, 100, 64), seed=7):
+    return [torch.from_numpy(x).to(torch.bfloat16).float()
+            for x in _inputs(shape, seed)]
+
+
+def _norm_err(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+
+
+def test_bf16_kernel_rounding_fits_the_card_tolerances():
+    """The tolerances chip_smoke.py holds the bf16 kernels to (BF16_TOL for
+    o and lse, BWD_BF16_TOL for dk and dv) against the fp32 plain versions
+    leave room for the design's own roundings, at a ragged length."""
+    q, k, v, do = _bf16_inputs()
+    o, lse, dk, dv = _sm90_rounding(q, k, v, do)
+    o_ref, lse_ref = tattn.plain_causal_attention_fwd(q, k, v)
+    _, dk_ref, dv_ref = tattn.plain_causal_attention_bwd(q, k, v, o, lse, do)
+    assert (o - o_ref).abs().max().item() <= chip_smoke.BF16_TOL
+    assert (lse - lse_ref).abs().max().item() <= chip_smoke.BF16_TOL
+    assert _norm_err(dk, dk_ref) <= chip_smoke.BWD_BF16_TOL
+    assert _norm_err(dv, dv_ref) <= chip_smoke.BWD_BF16_TOL
+
+
+def test_bf16_kernel_rounding_agrees_with_jax_bf16():
+    """The same emulation against the JAX package's XLA attention run in
+    bf16 on the same inputs (it also rounds p to bf16 before p v), forward
+    and gradients, within the card's bf16 tolerances."""
+    q, k, v, do = _bf16_inputs()
+    o, _, dk, dv = _sm90_rounding(q, k, v, do)
+
+    @jax.jit
+    def fwd_vjp(*args):   # fp32 in and out, bf16 inside
+        q, k, v, do = (x.astype(jnp.bfloat16) for x in args)
+        out, vjp = jax.vjp(jattn.xla_causal_attention, q, k, v)
+        return [x.astype(jnp.float32) for x in (out, *vjp(do))]
+
+    j_o, _, j_dk, j_dv = (torch.from_numpy(np.array(x))
+                          for x in fwd_vjp(*(x.numpy() for x in (q, k, v, do))))
+    assert (o - j_o).abs().max().item() <= chip_smoke.BF16_TOL
+    assert _norm_err(dk, j_dk) <= chip_smoke.BWD_BF16_TOL
+    assert _norm_err(dv, j_dv) <= chip_smoke.BWD_BF16_TOL
