@@ -10,19 +10,21 @@ script exits non-zero:
 
   1. device  the card's name and power limit (nvidia-smi)
   2. build   compile ray_tpu_torch/csrc with nvcc, one process per source,
-             all at once (timed); show ptxas's register / spill report
+             all at once (timed); show ptxas's register / spill report and
+             fail if a tensor-core (sm90) instance spills
   3. kernel  flash_attn_fwd against its plain PyTorch version on the card,
              o and lse, fp32 and bf16, head dims 32, 64 and 128, ragged and
-             aligned lengths, bitwise repeatable; times of the kernel, the
-             plain version and SDPA (yardstick only) at the serving and
+             aligned lengths, bitwise repeatable, with a digest of each
+             case's outputs (to compare commits bitwise); times of the
+             kernel, the plain version and SDPA (yardstick only) at the serving and
              training shapes, beside the least time the card could take,
              with the kernel's achieved TFLOP/s, its share of that bound
              and its ratio to SDPA
   4. bwd     flash_attn_bwd's dq and dk/dv kernels against their plain
              version on the card (and, in fp32, against autograd of the
              plain attention), fp32 and bf16, head dims 32, 64 and 128,
-             ragged and aligned lengths, bitwise repeatable; times at the
-             training shapes beside the bound, the plain backward and
+             ragged and aligned lengths, bitwise repeatable, with a digest
+             of each gradient; times at the training shapes beside the bound, the plain backward and
              SDPA's backward (yardstick only), with achieved TFLOP/s,
              share of the bound and ratio to SDPA's backward
   5. model   GPT-2-124M forward at (4, 512) on the card against the same
@@ -48,6 +50,7 @@ Without CUDA it exits 2 before printing any result.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import re
 import statistics
@@ -102,7 +105,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TENSOR_CORES = "sm90 wgmma+TMA, bf16"
 CUDA_CORES = "CUDA cores, fp32"
 DESIGN = {"flash_attn_fwd": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES},
-          "flash_attn_bwd_dq": {"bfloat16": CUDA_CORES, "float32": CUDA_CORES},
+          "flash_attn_bwd_dq": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES},
           "flash_attn_bwd_dkv": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES}}
 
 SERVE_WIDTH = (12, 12, 768, 50257, 1024)  # layers, heads, width, vocab, context
@@ -144,6 +147,16 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes. The
+    kernel phases make their inputs on the CPU from fixed seeds, so two
+    commits whose digests agree gave bitwise the same outputs."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def norm_err(got, ref) -> float:
@@ -222,22 +235,27 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     log(f"[build] {sorted(libs)} in {dt:.1f} s")
     # ptxas reports each instance as "Compiling entry function '<mangled>'"
-    # followed by its spill and register lines: the CUDA-core kernels are
-    # templates on <type, d>, the bf16 tensor-core ones on <d>
-    entry = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
-    entry90 = re.compile(r"(flash_(?:fwd|bwd_dkv)_sm90_kernel)ILi(\d+)E")
+    # followed by its spill and register lines: the fp32 CUDA-core kernels
+    # are templates on <float, d>, the bf16 tensor-core ones on <d>
+    entry = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)IfLi(\d+)E")
+    entry90 = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E")
+    spills = []
     for name in sorted(libs):
         label = name
         for line in _cuda.build_log(name).splitlines():
             found, found90 = entry.search(line), entry90.search(line)
             if found:
-                kernel, dtype, d = found.groups()
-                label = f"{kernel}<{'float' if dtype == 'f' else 'bf16'}, {d}>"
+                label = "{}<float, {}>".format(*found.groups())
             elif found90:
-                kernel, d = found90.groups()
-                label = f"{kernel}<bf16, {d}>"
+                label = "{}<bf16, {}>".format(*found90.groups())
             elif "registers" in line or "spill" in line:
                 log(f"[build] {label}: {line.split(':', 1)[-1].strip()}")
+                if "_sm90_" in label and re.search(r"[1-9]\d* bytes spill", line):
+                    spills.append(f"{label}: {line.strip()}")
+    # the tensor-core designs are sized to keep their accumulators in
+    # registers: a spill is a fault of the build, not a slow path
+    if spills:
+        raise AssertionError(f"tensor-core kernels spill: {spills}")
     return dt
 
 
@@ -267,7 +285,7 @@ def phase_kernel(card: str):
         case = {"shape": list(shape), "dtype": dtype_name(dtype),
                 "design": DESIGN["flash_attn_fwd"][dtype_name(dtype)],
                 "err_o": err_o, "err_lse": err_lse, "tol": tol,
-                "repeatable": repeatable}
+                "repeatable": repeatable, "digest": digest(o, lse)}
         if (shape, dtype) in TIMED_FWD:
             bound_ms, bound_by = attention_bound(shape, dtype)
             case.update(
@@ -322,6 +340,7 @@ def phase_bwd(card: str):
                 "design": {n: DESIGN[n][dtype_name(dtype)] for n in
                            ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")},
                 "repeatable": repeatable,
+                "digest": {n: digest(g) for n, g in zip(names, grads)},
                 "err": {n: norm_err(g, r) for n, g, r in zip(names, grads, ref)},
                 "abs_err": {n: (g.float() - r).abs().max().item()
                             for n, g, r in zip(names, grads, ref)},

@@ -26,18 +26,40 @@
 //     rows, so no block adds into another's rows: no atomics, no second
 //     reduction pass.
 //   - No divisibility rule: t is any length >= 1. Rows past t are computed
-//     on zeros and never stored; p is forced to 0 for queries past t, so
-//     their lse and delta never matter; keys past t are zero-filled.
+//     on zeros and never stored; keys past t are zero-filled and masked (a
+//     zero key scores 0, not -inf); dk/dv forces p to 0 for queries past t,
+//     so their lse and delta never matter.
 //   - The dk/dv kernel's first query row is its tile's first key row,
 //     computed from rows, not from a floored tile ratio.
 //
 // What bounds them on an H100 at the training shape (16 x 12 heads, t =
-// 1024, d = 64, bf16): the dq kernel does 3 products of 2*d FLOP per causal
-// pair, the dk/dv kernel 4, against about 7*bh*t*d elements of traffic; at
-// t = 1024 that is hundreds of FLOP per byte, so arithmetic sets the least
-// time, not HBM.
+// 1024, d = 64, bf16): per visible (query, key) pair the dq kernel does 3
+// products of 2*d FLOP (38.7 GFLOP: 0.0391 ms at the tensor cores' 989
+// TFLOP/s), the dk/dv kernel 4 (0.0522 ms), against about 7*bh*t*d
+// elements of traffic (under 0.01 ms at 3.35 TB/s): arithmetic sets the
+// least time, not HBM. So both bf16 designs keep the tensor cores fed:
+// every product is a wgmma on tiles that TMA brought into shared memory,
+// the output rows stay in fp32 registers for the whole walk, and the
+// exponentials run while a product is still in flight.
 //
-// Designs:
+// Designs, chosen by the dtype (one kernel per dtype and output, not a
+// fallback):
+//
+// dq, bfloat16 -> flash_bwd_dq_sm90_kernel, on the tensor cores: the
+//   forward's loop with the softmax statistics already known. One block per
+//   (128-query tile, bh), heaviest tiles first, two warpgroups of 64 query
+//   rows. q and do arrive once by TMA and stay; tiles of k and v (64 keys,
+//   128 at d = 128) stream through dk/dv's two-stage lockstep TMA ring
+//   (faster here than the forward's three-stage ring; see DqSmem). Per
+//   tile and warpgroup: S = q k^T and dP = do v^T (both operands in shared
+//   memory) are committed as two groups, so P = exp(S scale - lse) is
+//   computed while dP runs; dS = P (dP - delta) is rounded to bf16 in
+//   registers as the A operand of dq += dS k, which reads the same
+//   shared-memory k tile MN-major (it was the K-major B of S). Each thread
+//   owns two query rows and reads their lse and delta once per block. dq
+//   takes its 1/sqrt(d) once, in fp32, at the end. Only tiles that cross
+//   the diagonal or row t are masked; a warpgroup whose rows all precede a
+//   tile's keys skips its products but still meets the block's barrier.
 //
 // dk/dv, bfloat16 -> flash_bwd_dkv_sm90_kernel, on the tensor cores: the
 //   transposed form of FlashAttention-2/3's backward. One block per
@@ -60,23 +82,22 @@
 //   the end. Only tiles that cross the diagonal or row t are masked; a
 //   warpgroup whose keys all lie past the tile's queries skips it.
 //
-// dq (both dtypes) and dk/dv in float32 -> flash_bwd_dq_kernel and
-//   flash_bwd_dkv_kernel, on the CUDA cores in fp32 (67 TFLOP/s peak, not
-//   the tensor cores' 989): four threads share a row, split the head
-//   dimension, and meet through warp shuffles; the tiles of the other
-//   operand sit in shared memory as fp32 and are read without bank
-//   conflicts (the four threads of a row read four consecutive words; the
-//   eight rows of a warp read the same words, a broadcast). q is
-//   pre-scaled by 1/sqrt(d), so dk carries the factor through q. Tiles of
-//   32 rows keep both kernels under the 48 KB of static shared memory at d
-//   = 128 in fp32 (two 32 x 128 fp32 tiles are 32 KB). fp32 stays here
-//   because the tensor cores take fp32 only as TF32, which the port's fp32
-//   policy turns off; dq's move to wgmma is the next redesign (PERF.md).
+// float32 -> flash_bwd_dq_kernel and flash_bwd_dkv_kernel, on the CUDA
+//   cores in fp32 (67 TFLOP/s peak, not the tensor cores' 989): the
+//   tensor cores take fp32 only as TF32 (about three decimal digits), which
+//   the port's fp32 policy turns off. Four threads share a row, split the
+//   head dimension, and meet through warp shuffles; the tiles of the other
+//   operand sit in shared memory and are read without bank conflicts (the
+//   four threads of a row read four consecutive words; the eight rows of a
+//   warp read the same words, a broadcast). q is pre-scaled by 1/sqrt(d),
+//   so dk carries the factor through q. Tiles of 32 rows keep both kernels
+//   under the 48 KB of static shared memory at d = 128 (two 32 x 128 fp32
+//   tiles are 32 KB).
 //
 // Each launch runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (or the tensor map's error)
-// so the Python wrapper can raise on a refused launch. The bf16 dk/dv path
-// needs 16-byte-aligned q, k, v and do (TMA); the wrapper checks.
+// so the Python wrapper can raise on a refused launch. The bf16 kernels
+// need 16-byte-aligned q, k, v and do (TMA); the wrapper checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,18 +113,11 @@ constexpr int kTile = 32;             // rows of the other operand per smem tile
 constexpr int kThreads = kRows * kThreadsPerRow;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // sum over the four threads of a row (lanes 4r .. 4r+3 of a warp)
 __device__ __forceinline__ float row_sum(float x) {
@@ -318,7 +332,7 @@ int launch_dkv(const Args& a) {
 
 constexpr int kKeys90 = 128;     // key rows per block: two warpgroups of 64
 constexpr int kThreads90 = 256;
-constexpr int kStages90 = 2;     // q/do ring
+constexpr int kStages90 = 2;     // ring depth: q/do for dk/dv, k/v for dq
 
 template <int D>
 struct DkvSmem {
@@ -538,13 +552,219 @@ int launch_dkv_sm90(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: dq on the CUDA cores, dk/dv on the tensor cores
+// ---------------------------------------------------------------------------
+// dq in bfloat16: wgmma with TMA-fed tiles
+
+constexpr int kQueries90 = 128;   // query rows per block: two warpgroups of 64
+
+// k/v tiles stream through dk/dv's two-stage lockstep ring: thread 0 issues
+// the next tile's loads before the block computes on this one, and the
+// warpgroups meet at __syncthreads after each tile. Timed in turns on the
+// card (PERF.md), it beat the forward's three-stage ring with per-stage
+// release barriers at every head dim, and 64-key tiles were the faster at
+// d = 32 and 64 (106 and 122 registers: two blocks share an SM), 128-key
+// tiles at d = 128 (218 registers, one block).
+template <int D>
+struct DqSmem {
+  static constexpr int kN = D == 128 ? 128 : 64;   // keys per k/v tile
+  using QTile = sm90::Tile<kQueries90, D>;
+  using KTile = sm90::Tile<kN, D>;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = QTile::kBytes;
+  static constexpr int kK = 2 * QTile::kBytes;                  // kStages90 k tiles
+  static constexpr int kV = kK + kStages90 * KTile::kBytes;      // kStages90 v tiles
+  static constexpr int kBar = kV + kStages90 * KTile::kBytes;    // q/do, then per stage
+  static constexpr int kBytes = kBar + 8 * (1 + kStages90) + 1024;  // + alignment
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads90, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int t, float scale,
+                         float scale_log2) {
+  using S = DqSmem<D>;
+  using QTile = typename S::QTile;
+  using KTile = typename S::KTile;
+  constexpr int kN = S::kN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base + S::kQ;
+  const uint32_t do_s = base + S::kDo;
+  const uint32_t q_bar = base + S::kBar;
+  auto stage_bar = [&](int s) { return q_bar + 8 * (1 + s); };
+
+  const int wg = threadIdx.x / 128;            // warpgroup: query rows 64*wg ..
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQueries90;  // heaviest tiles first
+  const int qw0 = q0 + wg * 64;          // this warpgroup's first query
+  // causal: this q tile sees keys [0, min(t, q0 + kQueries90))
+  const int n_tiles = (min(t, q0 + kQueries90) + kN - 1) / kN;
+
+  // thread 0 loads tile j into stage j % kStages90
+  auto load_kv = [&](int j) {
+    const int s = j % kStages90;
+    sm90::mbar_expect_tx(stage_bar(s), 2 * KTile::kBytes);
+    sm90::tma_load_tile<kN, D>(base + S::kK + s * KTile::kBytes, &k_map, stage_bar(s),
+                               j * kN, bh);
+    sm90::tma_load_tile<kN, D>(base + S::kV + s * KTile::kBytes, &v_map, stage_bar(s),
+                               j * kN, bh);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages90; ++i) sm90::mbar_init(q_bar + 8 * i, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(q_bar, 2 * QTile::kBytes);
+    sm90::tma_load_tile<kQueries90, D>(q_s, &q_map, q_bar, q0, bh);
+    sm90::tma_load_tile<kQueries90, D>(do_s, &do_map, q_bar, q0, bh);
+    load_kv(0);   // n_tiles >= 1: q0 < t
+  }
+
+  // this thread's two query rows (see sm90::to_a_frags for the accumulator
+  // map), their lse in log2 units and their delta, read once
+  const int row_a = qw0 + warp * 16 + lane / 4;
+  const int row_b = row_a + 8;
+  const int col_in = 2 * (lane % 4);
+  const size_t head = static_cast<size_t>(bh) * t;
+  const float lse2_a = row_a < t ? __ldg(lse + head + row_a) * sm90::kLog2e : 0.f;
+  const float lse2_b = row_b < t ? __ldg(lse + head + row_b) * sm90::kLog2e : 0.f;
+  const float dlt_a = row_a < t ? __ldg(delta + head + row_a) : 0.f;
+  const float dlt_b = row_b < t ? __ldg(delta + head + row_b) : 0.f;
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+
+  sm90::mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages90;
+    // the stage of tile j-1: every warpgroup left it at the last barrier
+    if (threadIdx.x == 0 && j + 1 < n_tiles) load_kv(j + 1);
+    sm90::mbar_wait(stage_bar(s), (j / kStages90) & 1);
+    __syncwarp();
+    const uint32_t k_s = base + S::kK + s * KTile::kBytes;
+    const uint32_t v_s = base + S::kV + s * KTile::kBytes;
+    const int k0 = j * kN;
+
+    // warpgroup-uniform: skip a tile whose keys all lie past this
+    // warpgroup's rows, and every tile if all its rows lie past t
+    if (k0 <= qw0 + 63 && qw0 < t) {
+      // S = q k^T and dP = do v^T: 64 queries x kN keys, fp32, as two
+      // groups, so that P is computed while dP is still running
+      float acc_s[kN / 2], acc_dp[kN / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::wgmma_ss(acc_s, QTile::kmajor(q_s, wg * 64, kk), KTile::kmajor(k_s, 0, kk),
+                       kk > 0);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::wgmma_ss(acc_dp, QTile::kmajor(do_s, wg * 64, kk), KTile::kmajor(v_s, 0, kk),
+                       kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();   // S has landed
+      sm90::fence_regs(acc_s);
+
+      // P in place; masked where a key follows the query or lies past t
+      // (only on tiles that cross the diagonal or row t)
+      const bool masked = k0 + kN - 1 > qw0 || k0 + kN > t;
+#pragma unroll
+      for (int c = 0; c < kN / 8; ++c) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int col = k0 + 8 * c + col_in + v;
+          float pa = sm90::ex2(fmaf(acc_s[4 * c + v], scale_log2, -lse2_a));
+          float pb = sm90::ex2(fmaf(acc_s[4 * c + 2 + v], scale_log2, -lse2_b));
+          if (masked) {
+            if (col > row_a || col >= t) pa = 0.f;
+            if (col > row_b || col >= t) pb = 0.f;
+          }
+          acc_s[4 * c + v] = pa;
+          acc_s[4 * c + 2 + v] = pb;
+        }
+      }
+      sm90::wgmma_wait<0>();   // dP has landed
+      sm90::fence_regs(acc_dp);
+
+      // dS = P (dP - delta), then dq += dS k (A in bf16 from registers, k
+      // MN-major from shared memory)
+#pragma unroll
+      for (int c = 0; c < kN / 8; ++c) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          acc_dp[4 * c + v] = acc_s[4 * c + v] * (acc_dp[4 * c + v] - dlt_a);
+          acc_dp[4 * c + 2 + v] = acc_s[4 * c + 2 + v] * (acc_dp[4 * c + 2 + v] - dlt_b);
+        }
+      }
+      uint32_t ds_frag[kN / 16][4];
+      sm90::to_a_frags<kN>(acc_dp, ds_frag);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        sm90::wgmma_rs(acc_dq, ds_frag[kk], KTile::mnmajor(k_s, kk));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc_dq);
+    }
+    __syncthreads();   // stage s is free for tile j + 2
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= t) continue;
+    __nv_bfloat16* out = dq + (head + row) * D + col_in;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int i = 4 * c + 2 * half;
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
+          __floats2bfloat162_rn(acc_dq[i] * scale, acc_dq[i + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_sm90(const Args& a) {
+  using S = DqSmem<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int rc = sm90::make_tile_map(&q_map, a.q, a.bh, a.t, D, kQueries90);
+  if (rc == 0) rc = sm90::make_tile_map(&k_map, a.k, a.bh, a.t, D, S::kN);
+  if (rc == 0) rc = sm90::make_tile_map(&v_map, a.v, a.bh, a.t, D, S::kN);
+  if (rc == 0) rc = sm90::make_tile_map(&do_map, a.dout, a.bh, a.t, D, kQueries90);
+  // above the default 48 KB of dynamic shared memory
+  if (rc == 0) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_bwd_dq_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::kBytes));
+  }
+  if (rc != 0) return rc;
+  const double scale = 1.0 / sqrt(static_cast<double>(D));
+  const dim3 grid((a.t + kQueries90 - 1) / kQueries90, a.bh);
+  flash_bwd_dq_sm90_kernel<D><<<grid, kThreads90, S::kBytes, a.stream>>>(
+      q_map, k_map, v_map, do_map, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.t, static_cast<float>(scale), static_cast<float>(scale * sm90::kLog2e));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: dq and dk/dv on the tensor cores
 int dispatch_bf16(const Args& a, int d, int which) {
-  using T = __nv_bfloat16;
   switch (d) {
-    case 32: return which == 0 ? launch_dq<T, 32>(a) : launch_dkv_sm90<32>(a);
-    case 64: return which == 0 ? launch_dq<T, 64>(a) : launch_dkv_sm90<64>(a);
-    case 128: return which == 0 ? launch_dq<T, 128>(a) : launch_dkv_sm90<128>(a);
+    case 32: return which == 0 ? launch_dq_sm90<32>(a) : launch_dkv_sm90<32>(a);
+    case 64: return which == 0 ? launch_dq_sm90<64>(a) : launch_dkv_sm90<64>(a);
+    case 128: return which == 0 ? launch_dq_sm90<128>(a) : launch_dkv_sm90<128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

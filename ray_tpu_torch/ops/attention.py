@@ -21,12 +21,11 @@ for T >= 256 with T % 128 == 0) was a TPU tiling constraint; the CUDA
 kernels mask their own ragged edges and take every T >= 1.
 
 Inside the C entry points the kernel is chosen by the dtype, one kernel per
-dtype: bfloat16 runs the forward and dk/dv on the tensor cores (wgmma on
-TMA-fed tiles); float32, which the tensor cores take only as TF32 (turned
-off by the port's fp32 policy), and the dq kernel in both dtypes run on the
-CUDA cores in fp32. TMA needs 16-byte-aligned tensors, so every kernel
-input must start on a 16-byte boundary (a freshly allocated tensor
-does).
+dtype: bfloat16 runs the forward, dq and dk/dv on the tensor cores (wgmma
+on TMA-fed tiles); float32, which the tensor cores take only as TF32
+(turned off by the port's fp32 policy), runs on the CUDA cores in fp32.
+TMA needs 16-byte-aligned tensors, so every kernel input must start on a
+16-byte boundary (a freshly allocated tensor does).
 
 The gradient is :class:`FlashCausalAttention`, the counterpart of the JAX
 package's ``custom_vjp`` around ``_flash``: the forward saves q, k, v, o

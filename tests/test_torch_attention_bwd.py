@@ -159,9 +159,9 @@ def test_other_devices_raise_instead_of_falling_back():
 def _sm90_rounding(q, k, v, do):
     """The bf16 tensor-core kernels' arithmetic on the CPU, in fp32 on
     bf16-valued inputs (B, H, T, D): scores and sums in fp32, the scale
-    applied to the scores, p (forward and dk/dv) and ds rounded to bf16
-    before the second products, outputs rounded to bf16. Returns o, lse,
-    dk, dv."""
+    applied to the scores, p (forward and dk/dv) and ds (dq and dk) rounded
+    to bf16 before the second products, outputs rounded to bf16. Returns o,
+    lse, dq, dk, dv."""
     d, t = q.shape[-1], q.shape[-2]
     scale = 1.0 / math.sqrt(d)
     bf16 = lambda x: x.to(torch.bfloat16).float()
@@ -175,12 +175,13 @@ def _sm90_rounding(q, k, v, do):
     delta = (o * do).sum(dim=-1, keepdim=True)
     p = torch.exp(s - lse[..., None])
     ds = p * (torch.einsum("bhtd,bhsd->bhts", do, v) - delta)
+    dq = bf16(torch.einsum("bhts,bhsd->bhtd", bf16(ds), k) * scale)
     dv = bf16(torch.einsum("bhts,bhtd->bhsd", bf16(p), do))
     dk = bf16(torch.einsum("bhts,bhtd->bhsd", bf16(ds), q) * scale)
-    return o, lse, dk, dv
+    return o, lse, dq, dk, dv
 
 
-def _bf16_inputs(shape=(1, 2, 100, 64), seed=7):
+def _bf16_inputs(shape, seed):
     return [torch.from_numpy(x).to(torch.bfloat16).float()
             for x in _inputs(shape, seed)]
 
@@ -189,26 +190,37 @@ def _norm_err(got, ref):
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
 
 
-def test_bf16_kernel_rounding_fits_the_card_tolerances():
+# (head dim, length, numpy seed): every head dim the kernels take, at ragged
+# lengths (one partial tile; 100 crosses the 64-key tiles of dq's ring), and
+# longer rows whose sums run over several tiles of each kernel (512 is one of
+# chip_smoke.py's kernel lengths)
+ROUNDING_CASES = [(32, 7, 5), (64, 100, 7), (128, 100, 9), (64, 512, 11), (128, 300, 13)]
+
+
+@pytest.mark.parametrize("d,t,seed", ROUNDING_CASES)
+def test_bf16_kernel_rounding_fits_the_card_tolerances(d, t, seed):
     """The tolerances chip_smoke.py holds the bf16 kernels to (BF16_TOL for
-    o and lse, BWD_BF16_TOL for dk and dv) against the fp32 plain versions
-    leave room for the design's own roundings, at a ragged length."""
-    q, k, v, do = _bf16_inputs()
-    o, lse, dk, dv = _sm90_rounding(q, k, v, do)
+    o and lse, BWD_BF16_TOL for dq, dk and dv) against the fp32 plain
+    versions leave room for the design's own roundings, at a ragged
+    length."""
+    q, k, v, do = _bf16_inputs((1, 2, t, d), seed)
+    o, lse, dq, dk, dv = _sm90_rounding(q, k, v, do)
     o_ref, lse_ref = tattn.plain_causal_attention_fwd(q, k, v)
-    _, dk_ref, dv_ref = tattn.plain_causal_attention_bwd(q, k, v, o, lse, do)
+    dq_ref, dk_ref, dv_ref = tattn.plain_causal_attention_bwd(q, k, v, o, lse, do)
     assert (o - o_ref).abs().max().item() <= chip_smoke.BF16_TOL
     assert (lse - lse_ref).abs().max().item() <= chip_smoke.BF16_TOL
+    assert _norm_err(dq, dq_ref) <= chip_smoke.BWD_BF16_TOL
     assert _norm_err(dk, dk_ref) <= chip_smoke.BWD_BF16_TOL
     assert _norm_err(dv, dv_ref) <= chip_smoke.BWD_BF16_TOL
 
 
-def test_bf16_kernel_rounding_agrees_with_jax_bf16():
+@pytest.mark.parametrize("d,t,seed", ROUNDING_CASES)
+def test_bf16_kernel_rounding_agrees_with_jax_bf16(d, t, seed):
     """The same emulation against the JAX package's XLA attention run in
     bf16 on the same inputs (it also rounds p to bf16 before p v), forward
     and gradients, within the card's bf16 tolerances."""
-    q, k, v, do = _bf16_inputs()
-    o, _, dk, dv = _sm90_rounding(q, k, v, do)
+    q, k, v, do = _bf16_inputs((1, 2, t, d), seed)
+    o, _, dq, dk, dv = _sm90_rounding(q, k, v, do)
 
     @jax.jit
     def fwd_vjp(*args):   # fp32 in and out, bf16 inside
@@ -216,8 +228,9 @@ def test_bf16_kernel_rounding_agrees_with_jax_bf16():
         out, vjp = jax.vjp(jattn.xla_causal_attention, q, k, v)
         return [x.astype(jnp.float32) for x in (out, *vjp(do))]
 
-    j_o, _, j_dk, j_dv = (torch.from_numpy(np.array(x))
-                          for x in fwd_vjp(*(x.numpy() for x in (q, k, v, do))))
+    j_o, j_dq, j_dk, j_dv = (torch.from_numpy(np.array(x))
+                             for x in fwd_vjp(*(x.numpy() for x in (q, k, v, do))))
     assert (o - j_o).abs().max().item() <= chip_smoke.BF16_TOL
+    assert _norm_err(dq, j_dq) <= chip_smoke.BWD_BF16_TOL
     assert _norm_err(dk, j_dk) <= chip_smoke.BWD_BF16_TOL
     assert _norm_err(dv, j_dv) <= chip_smoke.BWD_BF16_TOL
