@@ -16,6 +16,10 @@ tuned apart in one process:
                      error instead of exhausting the cache
   llm_prefix_cache   share full prompt blocks between sequences (chained
                      content hash + copy-on-write); 0 disables
+  llm_spec_k         draft tokens proposed per speculative-decode step
+                     (verified by the target model in one fused forward)
+                     when the engine has a draft model; only greedy
+                     sequences speculate. 0 disables even with a draft
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ _FLAGS: Dict[str, Any] = {
     "llm_max_batch": 32,
     "llm_max_waiting": 512,
     "llm_prefix_cache": True,
+    "llm_spec_k": 4,
 }
 
 

@@ -30,13 +30,15 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.models import _flax
+from ray_tpu_torch.models._flax import flax_init_
+from ray_tpu_torch.models._flax import flax_tensors as _flax_tensors  # noqa: F401
 from ray_tpu_torch.ops.attention import causal_attention
 
 LAYERNORM_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -67,13 +69,15 @@ class Dense(nn.Linear):
     """``nn.Linear`` with fp32 parameters that computes in ``dtype``
     (flax ``Dense``: input, kernel and bias promoted to ``dtype``)."""
 
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device=None):
-        super().__init__(n_in, n_out, device=device, dtype=torch.float32)
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device=None,
+                 bias: bool = True):
+        super().__init__(n_in, n_out, bias=bias, device=device, dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -160,8 +164,12 @@ class GPT2(nn.Module):
         dt = config.dtype
         self.wte = Embedding(config.vocab_size, config.n_embd, dt, dev)
         self.wpe = Embedding(config.block_size, config.n_embd, dt, dev)
-        self.h = nn.ModuleList(Block(config, dev) for _ in range(config.n_layer))
+        self.h = nn.ModuleList(self._block(i, dev) for i in range(config.n_layer))
         self.ln_f = LayerNorm(config.n_embd, dt, dev)
+
+    def _block(self, i: int, device) -> nn.Module:
+        """Block ``i`` (the hook ``GPT2MoE`` overrides for its MoE blocks)."""
+        return Block(self.config, device)
 
     def head(self, x):
         """Final norm + weight-tied head in ``dtype``: (..., C) -> (..., vocab)."""
@@ -188,15 +196,8 @@ def loss_fn(logits, targets):
     return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
 
-def num_params(model: GPT2) -> int:
+def num_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
-
-
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    # flax Dense default: truncated normal on [-2, 2] std units, rescaled so
-    # the result has variance 1/fan_in (fan_in is nn.Linear's in_features)
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 def init_params(config: GPT2Config, generator: Optional[torch.Generator] = None,
@@ -207,70 +208,9 @@ def init_params(config: GPT2Config, generator: Optional[torch.Generator] = None,
     ``generator`` (default: seed 0), so one seed gives the same weights on
     every device; the numbers differ from JAX's, whose generator differs."""
     dev = resolve_device(device)
-    gen = generator if generator is not None else torch.Generator().manual_seed(0)
     model = GPT2(config, device="cpu")
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            w = torch.empty(p.shape, dtype=torch.float32)
-            if isinstance(_owner(model, name), nn.Embedding):
-                w.normal_(0.0, 1.0 / math.sqrt(config.n_embd), generator=gen)
-            elif name.endswith("weight") and w.dim() == 2:
-                _lecun_normal_(w, gen)
-            elif name.endswith("weight"):
-                w.fill_(1.0)  # LayerNorm scale
-            else:
-                w.zero_()
-            p.copy_(w)
+    flax_init_(model, 1.0 / math.sqrt(config.n_embd), generator)
     return model.to(dev)
-
-
-def _owner(model: nn.Module, param_name: str) -> nn.Module:
-    return model.get_submodule(param_name.rsplit(".", 1)[0])
-
-
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
-    out = {}
-    for key, val in tree.items():
-        path = f"{prefix}/{key}" if prefix else str(key)
-        if isinstance(val, dict):
-            out.update(_flatten(val, path))
-        else:
-            out[path] = val
-    return out
-
-
-def _torch_name(flax_path: str) -> str:
-    parts = flax_path.split("/")
-    if parts[0].startswith("h_"):
-        parts = ["h", parts[0][2:]] + parts[1:]
-    leaf = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
-    parts[-1] = leaf.get(parts[-1], parts[-1])
-    return ".".join(parts)
-
-
-def _flax_tensors(model: GPT2, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The flax tree ``tree`` (nested dicts of arrays, laid out like the
-    parameters) as fp32 CPU tensors keyed by ``model``'s parameter names,
-    dense kernels transposed. Unknown or missing keys, and shapes that do
-    not match, raise ``ValueError``."""
-    flat = _flatten(tree)
-    targets = dict(model.named_parameters())
-    by_name = {_torch_name(path): path for path in flat}
-    unknown = sorted(by_name[n] for n in set(by_name) - set(targets))
-    missing = sorted(set(targets) - set(by_name))
-    if unknown or missing:
-        raise ValueError(f"flax params do not fit the module: unknown "
-                         f"{unknown}, missing {missing}")
-    out = {}
-    for name, path in by_name.items():
-        arr = np.asarray(flat[path], dtype=np.float32)
-        if path.endswith("kernel"):
-            arr = arr.T
-        if tuple(arr.shape) != tuple(targets[name].shape):
-            raise ValueError(f"{path}: shape {arr.shape} does not fit "
-                             f"{name} {tuple(targets[name].shape)}")
-        out[name] = torch.tensor(arr)
-    return out
 
 
 def load_flax_params(model: GPT2, params: Dict[str, Any]) -> GPT2:
@@ -279,39 +219,7 @@ def load_flax_params(model: GPT2, params: Dict[str, Any]) -> GPT2:
     are (in, out) and are transposed into ``nn.Linear.weight``; LayerNorm
     ``scale``/``bias`` and embedding tables map by name. Unknown or missing
     keys, and shapes that do not match, raise ``ValueError``."""
-    values = _flax_tensors(model, params)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(values[name])
-    return model
+    return _flax.load_flax_params(model, params)
 
 
-def _adam_state(opt_state):
-    """The optax ``ScaleByAdamState`` (count, mu, nu) inside a chain's
-    nested state tuples."""
-    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
-        return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for sub in opt_state:
-            found = _adam_state(sub)
-            if found is not None:
-                return found
-    return None
-
-
-def load_flax_state(ts, state: Dict[str, Any]) -> Dict[str, Any]:
-    """The JAX ``TrainStep`` state (``params``, the optax chain's state with
-    Adam's ``count``/``mu``/``nu``, and ``step``, as numpy leaves, e.g.
-    ``jax.tree.map(np.asarray, state)``) as the state of the port's
-    :class:`~ray_tpu_torch.parallel.train_step.TrainStep` ``ts``, on its
-    device. Training continues from it where the JAX run stopped."""
-    model = load_flax_params(GPT2(ts.model_cfg, device=ts.device), state["params"])
-    adam = _adam_state(state["opt_state"])
-    if adam is None:
-        raise ValueError("no Adam state (count, mu, nu) in the optax state")
-    moments = {key: {name: t.to(ts.device) for name, t in
-                     _flax_tensors(model, getattr(adam, key)).items()}
-               for key in ("mu", "nu")}
-    return {"params": model,
-            "opt_state": {"count": int(np.asarray(adam.count)), **moments},
-            "step": int(np.asarray(state["step"]))}
+load_flax_state = _flax.load_flax_state

@@ -1,6 +1,10 @@
-"""One training step of GPT-2 on one CUDA card: the port of
-``ray_tpu/parallel/train_step.py`` ``TrainStep`` at dp = 1.
+"""One training step on one CUDA card: the port of
+``ray_tpu/parallel/train_step.py`` ``TrainStep`` at dp = 1, for every model
+family of the port.
 
+The config's type picks the family, as ``model_for_mesh`` does in the JAX
+package: ``GPT2Config`` trains GPT-2, ``GPT2MoEConfig`` GPT-2-MoE (whose
+summed MoE aux loss is added to the objective) and ``LlamaConfig`` Llama.
 The JAX package compiles one sharded step under jit over a device mesh.
 The port runs eagerly on one device: the forward and backward go through
 the module (whose attention is the hand-written flash kernels on the card,
@@ -11,18 +15,19 @@ and the update is a faithful copy of the optax chain the JAX step builds:
                                           g <- g / |g| * clip otherwise
     adamw(lr, b1=0.9, b2=beta2, eps=1e-8, weight_decay, mask=ndim > 1)
 
-so weight decay touches the dense kernels and embedding tables only (two
-parameter groups), never biases or LayerNorm. ``grad_norm`` in the metrics
-is the global norm before clipping, as in the JAX step.
+so weight decay touches the dense kernels, embedding tables and the MoE
+expert stacks only, never biases, LayerNorm or RMSNorm weights.
+``grad_norm`` in the metrics is the global norm before clipping, as in the
+JAX step.
 
-State is a dict ``{"params": GPT2, "opt_state": {"count", "mu", "nu"},
+State is a dict ``{"params": model, "opt_state": {"count", "mu", "nu"},
 "step": int}``: the module's fp32 parameters are the master weights, and
 ``mu``/``nu`` are keyed by parameter name. Where the JAX step donates its
 state buffers, this one updates the parameters and moments in place and
 returns the same dict.
 
-Not ported yet: a mesh (dp/fsdp/tp/sp/ep, ROADMAP Queue A item 8) and the
-GPT-2-MoE and Llama families (Queue A item 4) raise ``NotImplementedError``.
+Not ported yet: a mesh (dp/fsdp/tp/sp/ep, ROADMAP Queue A item 8) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.models.gpt2 import GPT2Config, init_params, loss_fn
+from ray_tpu_torch.models import gpt2, gpt2_moe, llama
 from ray_tpu_torch.train import _telemetry
 
 ADAM_B1 = 0.9
@@ -73,11 +78,27 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
     return out, norm
 
 
+def family_of(model_cfg):
+    """(model module, model class) a config trains, by its type:
+    ``gpt2_moe``/``GPT2MoE``, ``llama``/``Llama`` or ``gpt2``/``GPT2``
+    (``GPT2MoEConfig`` is tested before its base ``GPT2Config``)."""
+    for cfg_cls, family, model_cls in (
+            (gpt2_moe.GPT2MoEConfig, gpt2_moe, gpt2_moe.GPT2MoE),
+            (llama.LlamaConfig, llama, llama.Llama),
+            (gpt2.GPT2Config, gpt2, gpt2.GPT2)):
+        if isinstance(model_cfg, cfg_cls):
+            return family, model_cls
+    raise TypeError(
+        f"TrainStep takes the port's GPT2Config, GPT2MoEConfig or "
+        f"LlamaConfig (ray_tpu_torch.models), got {type(model_cfg).__module__}."
+        f"{type(model_cfg).__name__}")
+
+
 class TrainStep:
     """The JAX package's ``TrainStep`` on one CUDA card (``device=None``) or,
     for the tests, the CPU (``device="cpu"``)::
 
-        ts = TrainStep(GPT2Config.tiny())
+        ts = TrainStep(GPT2Config.tiny())     # or LlamaConfig, GPT2MoEConfig
         state = ts.init(torch.Generator().manual_seed(0))
         state, metrics = ts.step(state, ts.shard_batch(batch))
         # batch: dict idx/targets (B, T); metrics: loss, grad_norm
@@ -89,7 +110,7 @@ class TrainStep:
 
     def __init__(
         self,
-        model_cfg: GPT2Config,
+        model_cfg,
         mesh=None,
         *,
         learning_rate: float = 3e-4,
@@ -104,10 +125,8 @@ class TrainStep:
             raise NotImplementedError(
                 "the port's TrainStep runs on one device; meshes (dp, fsdp, "
                 "tp, sp, ep) come with ROADMAP Queue A item 8")
-        if not isinstance(model_cfg, GPT2Config):
-            raise NotImplementedError(
-                f"the port trains GPT-2 only; {type(model_cfg).__name__} (the "
-                f"GPT-2-MoE and Llama families) comes with ROADMAP Queue A item 4")
+        self.family, self._model_cls = family_of(model_cfg)
+        self._is_moe = self.family is gpt2_moe
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.learning_rate = learning_rate
@@ -128,11 +147,16 @@ class TrainStep:
     def init(self, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Fresh state: flax-initialised fp32 parameters (drawn on the CPU
         from ``generator``, default seed 0), zero moments, step 0."""
-        model = init_params(self.model_cfg, generator, device=self.device)
+        model = self.family.init_params(self.model_cfg, generator, device=self.device)
         zeros = lambda: {n: torch.zeros_like(p) for n, p in model.named_parameters()}
         return {"params": model,
                 "opt_state": {"count": 0, "mu": zeros(), "nu": zeros()},
                 "step": 0}
+
+    def new_model(self):
+        """The family's module for this config on this step's device, with
+        torch's default initialisation (``load_flax_state`` fills it)."""
+        return self._model_cls(self.model_cfg, device=self.device)
 
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """A batch of token ids (numpy or tensors) as int64 on the device."""
@@ -142,10 +166,15 @@ class TrainStep:
     # ------------------------------------------------------------------ step
 
     def loss_and_grads(self, state, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The loss and the raw (unclipped) gradient of every parameter."""
+        """The loss (with the MoE aux loss for GPT-2-MoE, as the JAX step's
+        objective) and the raw (unclipped) gradient of every parameter."""
         model = state["params"]
         names, params = zip(*model.named_parameters())
-        loss = loss_fn(model(batch["idx"]), batch["targets"])
+        if self._is_moe:
+            logits, aux = model(batch["idx"])
+            loss = self.family.loss_fn(logits, batch["targets"]) + aux
+        else:
+            loss = self.family.loss_fn(model(batch["idx"]), batch["targets"])
         return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
 
     def _step(self, state, batch) -> Dict[str, torch.Tensor]:

@@ -4,16 +4,22 @@ a CUDA card.
 The port of ``ray_tpu.serve.llm``: a paged KV cache whose pools live on the
 device (``kv_cache.PagedKVCache``), the prefill/decode scheduler with
 preemption (``scheduler.Scheduler``, copied unchanged), prefix caching with
-copy-on-write block sharing, admission control with a structured
-``LLMBackpressure`` error, and model adapters whose cold prefill attention
-runs the hand-written flash kernel (``ray_tpu_torch/csrc``).
+copy-on-write block sharing, speculative decoding against a draft model
+(``draft_adapter=``, ``spec_k=``), admission control with a structured
+``LLMBackpressure`` error, and model adapters (GPT-2, GPT-2-MoE, Llama)
+whose cold prefill attention runs the hand-written flash kernel
+(``ray_tpu_torch/csrc``).
 
 Quick start (tokens in, tokens out; weights are seeded random)::
 
     from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
     from ray_tpu_torch.serve.llm.adapters import build_adapter
 
-    engine = LLMEngine(build_adapter("gpt2"))           # on the card
+    engine = LLMEngine(build_adapter("llama-160m"),     # on the card
+                       draft_adapter=build_adapter(
+                           "llama-tiny",
+                           {"vocab_size": 32000, "block_size": 1024}),
+                       spec_k=4)
     rid = engine.submit([5, 9, 17], SamplingParams(max_tokens=32))
     engine.run_until_drained()
     tokens, done, reason = engine.pull(rid)
@@ -24,6 +30,15 @@ In this slice the engine is the entry point; ``LLMReplica``, ``deploy``,
 
 from __future__ import annotations
 
+from ray_tpu_torch.serve.llm.adapters import (
+    MODEL_ZOO,
+    FakeAdapter,
+    GPT2Adapter,
+    GPT2MoEAdapter,
+    LlamaAdapter,
+    ModelAdapter,
+    build_adapter,
+)
 from ray_tpu_torch.serve.llm.engine import (
     LLMBackpressure,
     LLMEngine,
@@ -33,6 +48,13 @@ from ray_tpu_torch.serve.llm.kv_cache import PagedKVCache
 from ray_tpu_torch.serve.llm.scheduler import Scheduler, Sequence, StepPlan
 
 __all__ = [
+    "MODEL_ZOO",
+    "ModelAdapter",
+    "GPT2Adapter",
+    "GPT2MoEAdapter",
+    "LlamaAdapter",
+    "FakeAdapter",
+    "build_adapter",
     "PagedKVCache",
     "Scheduler",
     "Sequence",

@@ -1,18 +1,23 @@
 """ray_tpu_torch.serve.llm against ray_tpu.serve.llm, on the CPU.
 
 Three levels, each on the same inputs through both packages:
-  - the GPT-2 adapter (JAX weights carried across): prefill, a prefix-hit
-    tail prefill and a batched decode, logits and K/V to 1e-4 (fp32, other
-    summation order);
-  - the whole engine on gpt2-tiny: equal greedy token streams;
+  - the GPT-2, Llama (4 query heads, 2 KV heads) and GPT-2-MoE adapters
+    (JAX weights carried across): prefill, a prefix-hit tail prefill, a
+    batched decode and the speculative-verify decode_chunk, logits and K/V
+    to 1e-4 (fp32, other summation order);
+  - the whole engine on gpt2-tiny, llama-tiny and gpt2-moe-tiny: equal
+    greedy token streams; with a draft model (speculative decoding) the
+    streams equal the plain ones, in both packages;
   - the engine and the paged KV cache on the model-free FakeAdapter, in the
     scenarios of tests/test_serve_llm.py and tests/test_llm_prefix_spec.py
     (batching, preemption, prefix caching and copy-on-write, backpressure,
-    cancel, seeded sampling, interrupted admission): equal results, and the
-    cache's integrity sweep clean after each.
+    cancel, seeded sampling, interrupted admission, speculative decoding
+    with partial, zero and EOS-cut acceptance): equal results and equal
+    acceptance, and the caches' integrity sweeps clean after each.
 """
 
 import pickle
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,6 +28,8 @@ from ray_tpu.serve.llm import adapters as jadapters
 from ray_tpu.serve.llm import engine as jengine
 from ray_tpu.serve.llm import kv_cache as jkv
 from ray_tpu_torch.models import gpt2 as tgpt2
+from ray_tpu_torch.models import gpt2_moe as tgmoe
+from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.serve.llm import adapters as tadapters
 from ray_tpu_torch.serve.llm import engine as tengine
@@ -30,6 +37,17 @@ from ray_tpu_torch.serve.llm import kv_cache as tkv
 
 TOL = 1e-4
 TINY = {"n_layer": 2, "n_embd": 64, "n_head": 4, "vocab_size": 96, "block_size": 64}
+SMALL = {"vocab_size": 96, "block_size": 64}   # llama-tiny, gpt2-moe-tiny widths
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny CPU ops: one thread is fastest and steady, where eight threads
+    on cores shared with other test workers stall on each other."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _np(x):
@@ -43,6 +61,24 @@ def pair():
     cfg = tgpt2.GPT2Config.tiny(dtype=torch.float32, **TINY)
     model = tgpt2.load_flax_params(tgpt2.GPT2(cfg, device="cpu"), jad.p)
     return jad, tadapters.GPT2Adapter(cfg, model)
+
+
+@pytest.fixture(scope="module")
+def pairs(pair):
+    """(JAX adapter, port adapter) per family, the port's weights carried
+    across from the JAX adapter's."""
+    jl = jadapters.build_adapter(
+        "llama-tiny", {**SMALL, "use_flash_attention": False}, seed=1)
+    lcfg = tllama.LlamaConfig.tiny(dtype=torch.float32, **SMALL)
+    tl = tadapters.LlamaAdapter(
+        lcfg, tllama.load_flax_params(tllama.Llama(lcfg, device="cpu"), jl.p))
+    jm = jadapters.build_adapter(
+        "gpt2-moe-tiny", {**SMALL, "use_flash_attention": False}, seed=2)
+    mcfg = tgmoe.GPT2MoEConfig.tiny_moe(dtype=torch.float32, **SMALL)
+    tm = tadapters.GPT2MoEAdapter(
+        mcfg, tgmoe.load_flax_params(tgmoe.GPT2MoE(mcfg, device="cpu"), jm.p))
+    assert tl.n_kv_heads == 2 and tl.n_heads == 4
+    return {"gpt2": pair, "llama": (jl, tl), "gpt2_moe": (jm, tm)}
 
 
 # ------------------------------------------------------------------ adapter
@@ -90,7 +126,7 @@ def test_adapter_batched_decode_matches_jax(pair):
         np.testing.assert_allclose(_np(g), w, atol=TOL, rtol=0)
 
 
-def _drive_gpt2(engine_mod, adapter):
+def _drive(engine_mod, adapter):
     eng = engine_mod.LLMEngine(adapter, num_blocks=64, block_size=4, max_batch=4)
     sp = engine_mod.SamplingParams(max_tokens=8)
     prompts = [[5, 9, 17, 3], list(range(1, 20)), [7, 7, 7, 7, 7, 7, 1, 2]]
@@ -105,20 +141,155 @@ def _drive_gpt2(engine_mod, adapter):
 def test_engine_gpt2_tiny_streams_equal_jax(pair):
     jad, tad = pair
     before = tattn.FLASH_FWD_LAUNCHES
-    want = _drive_gpt2(jengine, jad)
-    got = _drive_gpt2(tengine, tad)
+    want = _drive(jengine, jad)
+    got = _drive(tengine, tad)
     assert got == want
     assert got[1] > 0                            # the hit path ran
     assert all(done and len(t) == 8 for t, done, _ in got[0])
     assert tattn.FLASH_FWD_LAUNCHES == before    # CPU: plain path only
 
 
-def test_engine_refuses_speculative_decoding():
-    ad = tadapters.FakeAdapter(device="cpu")
-    with pytest.raises(NotImplementedError, match="decode_chunk"):
-        tengine.LLMEngine(ad, spec_k=4)
-    with pytest.raises(NotImplementedError):
-        tengine.LLMEngine(ad, draft_adapter=ad)
+def _ctx_batch(jad, rng, lens):
+    """A padded gathered context [B, L, Tmax, H, D] whose padding past each
+    length holds garbage (both sides must mask it)."""
+    L, H, D = jad.n_layers, jad.n_kv_heads, jad.head_dim
+    tmax = int(lens.max())
+    k_ctx = rng.standard_normal((len(lens), L, tmax, H, D)).astype(np.float32)
+    v_ctx = rng.standard_normal((len(lens), L, tmax, H, D)).astype(np.float32)
+    for i, n in enumerate(lens):
+        _, k, v = jad.prefill(rng.integers(0, 96, n))
+        k_ctx[i, :, :n], v_ctx[i, :, :n] = k, v
+    return k_ctx, v_ctx
+
+
+def adapter_call_prefill(jad, tad, rng):
+    tokens = rng.integers(0, 96, 11)
+    return jad.prefill(tokens), tad.prefill(tokens)
+
+
+def adapter_call_prefix_hit(jad, tad, rng):
+    full, P = rng.integers(0, 96, 15), 9
+    _, kc, vc = jad.prefill(full[:P])
+    return (jad.prefill_ctx(full[P:], P, kc, vc),
+            tad.prefill_ctx(full[P:], P, torch.from_numpy(kc), torch.from_numpy(vc)))
+
+
+def adapter_call_decode(jad, tad, rng):
+    lens = np.asarray([5, 9, 2])
+    k_ctx, v_ctx = _ctx_batch(jad, rng, lens)
+    tokens = rng.integers(0, 96, 3)
+    return (jad.decode(tokens, lens.copy(), k_ctx, v_ctx, lens.astype(np.int32)),
+            tad.decode(tokens, lens.copy(), torch.from_numpy(k_ctx),
+                       torch.from_numpy(v_ctx), torch.from_numpy(lens)))
+
+
+def adapter_call_decode_chunk(jad, tad, rng):
+    lens = np.asarray([5, 9, 2])
+    k_ctx, v_ctx = _ctx_batch(jad, rng, lens)
+    tokens = rng.integers(0, 96, (3, 4))
+    return (jad.decode_chunk(tokens, lens.copy(), k_ctx, v_ctx, lens.astype(np.int32)),
+            tad.decode_chunk(tokens, lens.copy(), torch.from_numpy(k_ctx),
+                             torch.from_numpy(v_ctx), torch.from_numpy(lens)))
+
+
+ADAPTER_CALLS = {f.__name__[len("adapter_call_"):]: f for f in (
+    adapter_call_prefill, adapter_call_prefix_hit, adapter_call_decode,
+    adapter_call_decode_chunk)}
+
+
+@pytest.mark.parametrize("family,call", [("gpt2", "decode_chunk")] + [
+    (f, c) for f in ("llama", "gpt2_moe") for c in sorted(ADAPTER_CALLS)])
+def test_family_adapter_matches_jax(pairs, family, call):
+    jad, tad = pairs[family]
+    want, got = ADAPTER_CALLS[call](jad, tad, np.random.default_rng(3))
+    for w, g in zip(want, got):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), w, atol=TOL, rtol=0)
+
+
+def test_decode_chunk_rows_equal_sequential_decodes(pairs):
+    """decode_chunk's logits at chunk position c are decode's after the
+    chunk's first c tokens were appended: the verify pass scores what plain
+    decoding would have (the port alone, Llama with GQA)."""
+    _, tad = pairs["llama"]
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, 96, 7)
+    chunk = rng.integers(0, 96, 3)
+    _, k, v = tad.prefill(prompt)
+    k_ctx, v_ctx = k[None], v[None]                        # [1, L, T, H, D]
+    lens = torch.tensor([7])
+    logits, _, _ = tad.decode_chunk(chunk[None], np.asarray([7]), k_ctx, v_ctx, lens)
+    for c in range(3):
+        step, k_new, v_new = tad.decode(chunk[c:c + 1], np.asarray([7 + c]),
+                                        k_ctx, v_ctx, lens)
+        torch.testing.assert_close(step[0], logits[0, c], rtol=0, atol=TOL)
+        k_ctx = torch.cat([k_ctx, k_new[:, :, None]], dim=2)
+        v_ctx = torch.cat([v_ctx, v_new[:, :, None]], dim=2)
+        lens = lens + 1
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2_moe"])
+def test_engine_streams_equal_jax(pairs, family):
+    jad, tad = pairs[family]
+    want = _drive(jengine, jad)
+    got = _drive(tengine, tad)
+    assert got == want
+    assert got[1] > 0
+    assert all(done and len(t) == 8 for t, done, _ in got[0])
+
+
+def _spec_streams(engine_mod, target, draft):
+    sp = engine_mod.SamplingParams(max_tokens=8)
+    prompt = [5, 9, 17, 3]
+    cold = engine_mod.LLMEngine(target, num_blocks=64, block_size=4, max_batch=4,
+                                prefix_cache=False)
+    ref = _drain(cold, [cold.submit(prompt, sp)])
+    spec = engine_mod.LLMEngine(target, num_blocks=64, block_size=4, max_batch=4,
+                                prefix_cache=True, draft_adapter=draft, spec_k=3)
+    outs = _drain(spec, [spec.submit(prompt, sp) for _ in range(3)])
+    spec.draft_cache.assert_no_leaks()
+    assert spec.draft_cache.num_used_blocks == 0 and spec.spec_rounds_total > 0
+    return ref, outs, spec.spec_acceptance(), spec.stats()["spec_rounds_total"]
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+@pytest.mark.parametrize("draft", ["same", "other"])
+def test_spec_streams_equal_plain_and_jax(pairs, family, draft):
+    """The target drafts for itself (acceptance 1) or takes the other
+    family's model as its draft (acceptance near 0): either way every
+    speculative stream equals the plain stream, in both packages."""
+    other = {"gpt2": "llama", "llama": "gpt2"}[family]
+    jad, tad = pairs[family]
+    jdraft, tdraft = pairs[family if draft == "same" else other]
+    want = _spec_streams(jengine, jad, jdraft)
+    got = _spec_streams(tengine, tad, tdraft)
+    ref, outs, acceptance, _ = got
+    assert all(o == ref[0] for o in outs)
+    assert got == want
+    # a draft that is the target agrees everywhere (below 1 only where the
+    # budget of 8 tokens cuts the last round short); another model rarely
+    assert acceptance > 0.8 if draft == "same" else acceptance < 0.5
+
+
+def test_fake_adapter_step_cost_sleeps_once_per_call():
+    """A fused call costs one simulated model time however many sequences
+    or chunk tokens it carries (the spec benches' target:draft ratio)."""
+    ad = tadapters.FakeAdapter(vocab_size=97, step_cost_s=0.05, device="cpu")
+    kv = torch.zeros((3, 1, 4, 1, 1))
+    t0 = time.perf_counter()
+    ad.decode_chunk(np.ones((3, 5), np.int64), np.zeros(3), kv, kv, torch.tensor([4, 2, 0]))
+    dt = time.perf_counter() - t0
+    assert 0.05 <= dt < 0.5
+
+
+def test_engine_refuses_a_draft_of_another_vocabulary():
+    target = tadapters.FakeAdapter(vocab_size=97, device="cpu")
+    draft = tadapters.FakeAdapter(vocab_size=96, device="cpu")
+    with pytest.raises(ValueError, match="draft vocab 96"):
+        tengine.LLMEngine(target, draft_adapter=draft)
+    # spec_k = 0 turns speculation off even with a draft
+    eng = tengine.LLMEngine(target, draft_adapter=draft, spec_k=0)
+    assert eng.draft_cache is None and "spec_acceptance" not in eng.stats()
 
 
 # ------------------------------------------------ engine on the fake model
@@ -244,6 +415,67 @@ def scenario_interrupted_admission(E):
     return out
 
 
+def _spec_engine(E, draft_every, **kw):
+    return E.LLMEngine(E.fake(vocab_size=97), draft_adapter=E.fake(
+        vocab_size=97, disagree_every=draft_every), **kw)
+
+
+def _spec_result(eng, out):
+    eng.draft_cache.assert_no_leaks()
+    assert eng.draft_cache.num_used_blocks == 0
+    stats = eng.stats()
+    return (out, eng.spec_acceptance(), eng.spec_rounds_total,
+            eng.spec_proposed_total, eng.steps_total,
+            stats["spec_acceptance"], stats["spec_rounds_total"])
+
+
+def scenario_spec_partial_acceptance(E):
+    base = _engine(E, num_blocks=64, block_size=4, max_batch=4, prefix_cache=False)
+    (ref, _), = _drain(base, [base.submit([7, 8, 9], E.SamplingParams(max_tokens=20))])
+    spec = _spec_engine(E, 7, num_blocks=64, block_size=4, max_batch=4, spec_k=4)
+    out = _drain(spec, [spec.submit([7, 8, 9], E.SamplingParams(max_tokens=20))
+                        for _ in range(3)])
+    assert all(o == (ref, "length") for o in out)
+    assert 0.0 < spec.spec_acceptance() < 1.0 and spec.steps_total < 3 * 20
+    return _spec_result(spec, out)
+
+
+def scenario_spec_zero_acceptance(E):
+    base = _engine(E, num_blocks=64, block_size=4, max_batch=2, prefix_cache=False)
+    ref = _drain(base, [base.submit([3, 5], E.SamplingParams(max_tokens=10))])
+    # disagree_every=1 perturbs EVERY draft token: the worst-case draft
+    spec = _spec_engine(E, 1, num_blocks=64, block_size=4, max_batch=2, spec_k=3)
+    out = _drain(spec, [spec.submit([3, 5], E.SamplingParams(max_tokens=10))])
+    assert out == ref and spec.spec_acceptance() == 0.0
+    return _spec_result(spec, out)
+
+
+def scenario_spec_eos_inside_accepted_run(E):
+    base = _engine(E, num_blocks=64, block_size=4, max_batch=2, prefix_cache=False)
+    (ref, _), = _drain(base, [base.submit([7, 8, 9], E.SamplingParams(max_tokens=20))])
+    sp = E.SamplingParams(max_tokens=20, eos_id=ref[5])    # terminate mid-stream
+    results = []
+    for draft_every in (0, 7):                             # perfect and partial
+        spec = _spec_engine(E, draft_every, num_blocks=64, block_size=4,
+                            max_batch=2, prefix_cache=False, spec_k=4)
+        out = _drain(spec, [spec.submit([7, 8, 9], sp)])
+        assert out == [(ref[:6], "eos")]
+        results.append(_spec_result(spec, out))
+    return results
+
+
+def scenario_spec_sampled_take_plain_path(E):
+    sp = dict(max_tokens=8, temperature=1.0, seed=7)
+    plain = _engine(E, num_blocks=64, block_size=4, max_batch=4)
+    ref = _drain(plain, [plain.submit([1, 2], E.SamplingParams(**sp))])
+    spec = _spec_engine(E, 0, num_blocks=64, block_size=4, max_batch=4, spec_k=4)
+    greedy = spec.submit([1, 2], E.SamplingParams(max_tokens=8))
+    sampled = spec.submit([1, 2], E.SamplingParams(**sp))
+    out = _drain(spec, [greedy, sampled])
+    assert out[1] == ref[0] and spec.spec_proposed_total > 0
+    return _spec_result(spec, out)
+
+
 def scenario_eos_and_pull_markers(E):
     eng = _engine(E, num_blocks=64, block_size=4, max_batch=2)
     (ref, _), = _drain(eng, [eng.submit([7, 8, 9], E.SamplingParams(max_tokens=20))])
@@ -257,7 +489,9 @@ SCENARIOS = {f.__name__[len("scenario_"):]: f for f in (
     scenario_batched_vs_unbatched, scenario_preemption_recompute,
     scenario_prefix_equals_cold, scenario_cow_preempt, scenario_backpressure,
     scenario_cancel_frees_kv, scenario_seeded_temperature,
-    scenario_interrupted_admission, scenario_eos_and_pull_markers)}
+    scenario_interrupted_admission, scenario_eos_and_pull_markers,
+    scenario_spec_partial_acceptance, scenario_spec_zero_acceptance,
+    scenario_spec_eos_inside_accepted_run, scenario_spec_sampled_take_plain_path)}
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))

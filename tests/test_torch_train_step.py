@@ -10,6 +10,13 @@ derived from the learning rate: Adam's first step moves every weight by
 about lr whatever the size of its gradient, so a gradient near 0 whose sign
 differs between the two sides moves a weight by up to 2 * lr.
 
+The Llama (4 query heads, 2 KV heads) and GPT-2-MoE families take three
+steps against the JAX ``TrainStep`` the same way, the MoE objective with
+its aux loss: loss and grad_norm to 1e-4 relative, and after three steps
+every parameter tensor to 1e-4 of its norm (fp32; Adam's sign flips on
+near-0 gradients move single weights by up to 2 * lr, a tiny share of a
+tensor's norm).
+
 Also here: multi_step against repeated step, the weight-decay mask, the
 clip against optax's formula, remat on and off, the device rule, and the
 telemetry arithmetic against the JAX package's StepRecorder.
@@ -25,15 +32,20 @@ import pytest
 import torch
 
 from ray_tpu.models import gpt2 as jgpt2
+from ray_tpu.models import gpt2_moe as jgmoe
+from ray_tpu.models import llama as jllama
 from ray_tpu.parallel.mesh import make_mesh
 from ray_tpu.parallel.train_step import TrainStep as JTrainStep
 from ray_tpu.train import _telemetry as jtel
 from ray_tpu_torch.models import gpt2 as tgpt2
+from ray_tpu_torch.models import gpt2_moe as tgmoe
+from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.parallel.train_step import TrainStep, clip_by_global_norm
 from ray_tpu_torch.train import _telemetry as ttel
 
 LR = 1e-3
 RTOL = 1e-5      # loss, grad_norm: fp32, summation order only
+FAMILY_RTOL = 1e-4  # Llama and GPT-2-MoE: loss, grad_norm, parameters
 GRAD_TOL = 1e-5  # first-step gradients, absolute
 JCFG = jgpt2.GPT2Config.tiny(dtype=jnp.float32, n_layer=2)
 TCFG = tgpt2.GPT2Config.tiny(dtype=torch.float32, n_layer=2)
@@ -151,6 +163,80 @@ def test_multi_step_matches_repeated_step(stacked):
         assert torch.equal(p, q), name
 
 
+FAMILIES = {
+    "llama": (jllama.LlamaConfig.tiny(dtype=jnp.float32),
+              tllama.LlamaConfig.tiny(dtype=torch.float32), tllama),
+    "gpt2_moe": (jgmoe.GPT2MoEConfig.tiny_moe(dtype=jnp.float32),
+                 tgmoe.GPT2MoEConfig.tiny_moe(dtype=torch.float32), tgmoe),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def family_run(request):
+    """Three JAX steps of a family from seed 3: the initial state, the
+    metrics of every step and the final params, as numpy."""
+    jcfg, tcfg, module = FAMILIES[request.param]
+    ts = JTrainStep(jcfg, make_mesh({"dp": 1}, devices=jax.devices()[:1]),
+                    learning_rate=LR, telemetry=False)
+    state = ts.init(jax.random.PRNGKey(3))
+    batches = _batches(3, B=2, T=16, seed=9)
+    init = _numpy(state)
+    metrics = []
+    for b in batches:
+        state, m = ts.step(state, ts.shard_batch(b))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"name": request.param, "tcfg": tcfg, "module": module, "init": init,
+            "metrics": metrics, "final": _numpy(state["params"]), "batches": batches}
+
+
+def test_family_three_steps_follow_the_jax_train_step(family_run):
+    run = family_run
+    ts = TrainStep(run["tcfg"], device="cpu", telemetry=False, learning_rate=LR)
+    assert ts.family is run["module"] and ts._is_moe == (run["name"] == "gpt2_moe")
+    state = run["module"].load_flax_state(ts, run["init"])
+    got = []
+    for b in run["batches"]:
+        state, m = ts.step(state, ts.shard_batch(b))
+        got.append((m["loss"].item(), m["grad_norm"].item()))
+    np.testing.assert_allclose(got, run["metrics"], rtol=FAMILY_RTOL, atol=0)
+    assert state["step"] == 3 and state["opt_state"]["count"] == 3
+    final = tgpt2._flax_tensors(state["params"], run["final"])
+    errs = {}
+    for name, p in state["params"].named_parameters():
+        got_p, want_p = p.detach(), final[name]
+        if name.endswith("attn.c_attn.bias"):
+            # the key third of GPT-2's qkv bias has an exactly-0 gradient
+            # (a constant added to every key shifts a query's scores alike),
+            # so Adam normalises rounding noise there: the 2 * lr bound
+            C = got_p.shape[0] // 3
+            np.testing.assert_allclose(got_p[C:2 * C].numpy(), want_p[C:2 * C].numpy(),
+                                       atol=2 * LR, rtol=0, err_msg=name)
+            keep = torch.cat([torch.arange(C), torch.arange(2 * C, 3 * C)])
+            got_p, want_p = got_p[keep], want_p[keep]
+        errs[name] = ((got_p - want_p).norm() / want_p.norm()).item()
+    assert max(errs.values()) <= FAMILY_RTOL, errs
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_family_weight_decay_mask_is_ndim_above_one(name):
+    """RMSNorm weights, LayerNorm and biases stay out of the decay; dense
+    kernels, embeddings and the 3-D expert stacks are decayed."""
+    ts = TrainStep(FAMILIES[name][1], device="cpu", telemetry=False,
+                   learning_rate=0.5, weight_decay=0.1)
+    state = ts.init()
+    before = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+    zero = {n: torch.zeros_like(p) for n, p in before.items()}
+    ts.loss_and_grads = lambda state, batch: (torch.tensor(0.0), zero)
+    ts.step(state, {})
+    ndims = {p.ndim for p in before.values()}
+    assert ndims == ({1, 2} if name == "llama" else {1, 2, 3})
+    for n, p in state["params"].named_parameters():
+        if before[n].ndim > 1:
+            torch.testing.assert_close(p.detach(), before[n] * (1 - 0.5 * 0.1))
+        else:
+            assert torch.equal(p.detach(), before[n]), n
+
+
 def test_weight_decay_leaves_biases_and_layer_norm_alone():
     # with zero gradients Adam's update is 0, so only decay moves a weight
     ts = _port(learning_rate=0.5, weight_decay=0.1)
@@ -213,8 +299,8 @@ def test_constructor_refuses_what_is_not_ported(monkeypatch, case):
     elif case == "mesh":
         with pytest.raises(NotImplementedError, match="Queue A item 8"):
             TrainStep(TCFG, object(), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    else:   # a config that is not one of the port's families
+        with pytest.raises(TypeError, match="LlamaConfig"):
             TrainStep(JCFG, device="cpu")
 
 
