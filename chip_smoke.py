@@ -33,15 +33,21 @@ script exits non-zero:
              full width answers 8 requests (one prefix-cache hit); the
              forward kernel's launch counter, the cache's integrity, and a
              teacher-forced check of every greedy token against the CPU
-             plain forward
+             plain forward; the engine's six ray_tpu_llm_* series and the
+             count of each llm.* flight event (a series the engine
+             publishes unset, or an expected event absent, fails)
   7. train   the training path: TrainStep on GPT-2-124M at full width, bf16
              compute over fp32 master weights, B = 16, T = 1024: a warm-up
              step, then timed steps on a repeated batch with a falling
              loss and exactly 24 forward, 12 dq and 12 dk/dv launches per
              step; step time, tokens/s, MFU and peak memory from the
-             port's recorder; the attention kernels' share of one step
-             (torch.profiler); then one fp32 step at full width on (2, 128)
-             on the card and on the CPU plain path from the same weights
+             port's recorder; one more step inside a device-trace window
+             the recorder opens (request_device_trace(1): torch.profiler,
+             written as a Chrome trace), read back for its kernel times,
+             the attention kernels' share and the device's busy share; the
+             recorder's slow-step flag; then one fp32 step at full width
+             on (2, 128) on the card and on the CPU plain path from the
+             same weights
   8. llama   Llama-160M at full width (12 layers, 12 heads, 4 KV heads
              repeated to 12 before the kernels, width 768, vocab 32000):
              the fp32 forward at (4, 512) against the CPU, serving as in
@@ -61,9 +67,20 @@ script exits non-zero:
              CPU after its dispatch masks are compared (a routing flip from
              a near tie shows as such); gpt2-moe-tiny serves 4 requests
              (dropless routing) against the CPU
+ 11. head_dims  head dims the kernels are not built for run on them,
+             zero-padded to the next kernel size (16 to 32, 48 to 64):
+             gpt2-tiny at head dim 16 serves 4 requests through a small KV
+             pool (with preemptions) against the CPU, a GPT2Config(n_head=16)
+             bf16 step at head dim 48 takes 24 / 12 / 12 launches and one
+             fp32 step on (2, 128) agrees with the CPU, and the padded
+             forward and backward at both head dims agree with the plain
+             version, all with no plain call; a (5462, 12, 16, 64) bf16
+             forward and backward (B * H = 65544, over the grid's 65535)
+             runs the kernels in two chunks, against the plain version
 
-Then one JSON line of kernels (launches per path: GPT-2 train and serve,
-Llama train and serve, spec, MoE train) and, last, ``{"ok": true,
+Then one JSON line of kernels (launches and plain attention calls per
+path: GPT-2 train and serve, Llama train and serve, spec, MoE train; every
+full-width path must show 0 plain calls) and, last, ``{"ok": true,
 "device": ...}``.
 Without CUDA it exits 2 before printing any result.
 """
@@ -144,6 +161,19 @@ SPEC_K = 4                    # draft tokens per speculative round
 MOE_WIDTH = (12, 12, 768, 50257, 8, 2, 2)
 MOE_TRAIN_BATCH = (8, 1024)
 MOE_TRAIN_STEPS = 3           # timed steps after one warm-up step
+# the head_dims phase: gpt2-tiny as the JAX package's serving test builds it
+# (head dim 16), served through a pool small enough to preempt; a 16-head
+# GPT-2-124M (head dim 48) step; the padded kernels alone at the shapes those
+# paths give them, in fp32 and bf16; and a B * H over the grid's 65535
+TINY_SERVE = {"n_layer": 2, "n_embd": 64, "n_head": 4, "vocab_size": 96,
+              "block_size": 64}
+TINY_POOL = {"num_blocks": 24, "block_size": 4}
+HEAD48_TRAIN_BATCH = (4, 1024)
+PADDED_SHAPES = ((1, 4, 40, 16), (4, 16, 1024, 48))
+BIG_BH_SHAPE = (5462, 12, 16, 64)
+LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
+              "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
+              "ray_tpu_llm_prefix_hit_rate", "ray_tpu_llm_spec_acceptance")
 
 
 def log(msg: str) -> None:
@@ -172,6 +202,81 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counter and the plain-call counter to 0."""
+    from ray_tpu_torch.ops import attention
+
+    attention.FLASH_FWD_LAUNCHES = 0
+    attention.FLASH_BWD_DQ_LAUNCHES = 0
+    attention.FLASH_BWD_DKV_LAUNCHES = 0
+    attention.PLAIN_ATTENTION_CALLS = 0
+
+
+def read_counts():
+    """(forward, dq, dk/dv launches, plain attention calls) since the last
+    reset."""
+    from ray_tpu_torch.ops import attention
+
+    return (attention.FLASH_FWD_LAUNCHES, attention.FLASH_BWD_DQ_LAUNCHES,
+            attention.FLASH_BWD_DKV_LAUNCHES, attention.PLAIN_ATTENTION_CALLS)
+
+
+def flight_mark() -> int:
+    """The flight recorder's newest sequence number."""
+    from ray_tpu_torch._private import flight_recorder
+
+    snap = flight_recorder.get_recorder().snapshot()
+    return snap[-1][0] if snap else 0
+
+
+def flight_events(mark: int, prefix: str):
+    """{event: count} of the events named ``prefix``* recorded after
+    ``mark``."""
+    from ray_tpu_torch._private import flight_recorder
+
+    out = {}
+    for e in flight_recorder.dump():
+        if e["seq"] > mark and e["event"].startswith(prefix):
+            out[e["event"]] = out.get(e["event"], 0) + 1
+    return out
+
+
+def llm_telemetry(tag: str, engine, mark: int, expect_events):
+    """The engine's six ray_tpu_llm_* series, read from the port's metric
+    table under the engine's deployment tag, and the count of each llm.*
+    flight event recorded after ``mark``. Fails if a series this engine
+    publishes is unset (the prefix hit rate with the prefix cache on, the
+    acceptance with a draft, the preemption counter after a preemption),
+    if the tokens/s EMA is not positive, or if an expected event is
+    absent: a swallowed telemetry error cannot pass silently."""
+    from ray_tpu_torch.util import metrics
+
+    name = engine._tags["deployment"]
+    series = {r["name"]: r["value"] for r in metrics.drain_records()
+              if r["name"] in LLM_SERIES and r["labels"]["deployment"] == name}
+    events = flight_events(mark, "llm.")
+    published = ["ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
+                 "ray_tpu_llm_batch_size"]
+    if engine.prefix_cache_enabled:
+        published.append("ray_tpu_llm_prefix_hit_rate")
+    if engine.draft_cache is not None:
+        published.append("ray_tpu_llm_spec_acceptance")
+    preemptions = engine.scheduler.preemptions_total
+    if preemptions:
+        published.append("ray_tpu_llm_preemptions_total")
+    shown = {n: series.get(n, "unset") for n in LLM_SERIES}
+    log(f"[{tag}] series {json.dumps(shown)}; llm.* events {json.dumps(events)}; "
+        f"scheduler preemptions {preemptions}")
+    missing = [n for n in published if n not in series]
+    absent = [e for e in expect_events if not events.get(e)]
+    counted = series.get("ray_tpu_llm_preemptions_total", 0)
+    if (missing or absent or counted > preemptions
+            or series.get("ray_tpu_llm_tokens_per_s", 0) <= 0):
+        raise AssertionError(f"{tag}: series unset {missing}, events absent "
+                             f"{absent}, series {shown}, events {events}")
+    return {"series": shown, "events": events, "preemptions": preemptions}
 
 
 def dtype_name(dtype) -> str:
@@ -427,24 +532,22 @@ def phase_bwd(card: str):
 def check_forward(card: str, tag: str, name: str, model, vocab: int) -> None:
     """``model``'s fp32 forward at FORWARD_SHAPE on the card against a CPU
     copy of the same weights (the plain path): logits within LOGIT_TOL and
-    one forward kernel launch per layer."""
-    from ray_tpu_torch.ops import attention
-
+    one forward kernel launch per layer, no plain attention call."""
     idx = torch.randint(0, vocab, FORWARD_SHAPE,
                         generator=torch.Generator().manual_seed(1))
     cpu_model = copy.deepcopy(model).to("cpu")
     idx_card = idx.to(DEVICE)
-    attention.FLASH_FWD_LAUNCHES = 0
+    reset_counts()
     with torch.inference_mode():
         logits = model(idx_card)
         torch.cuda.synchronize()
-        launches = attention.FLASH_FWD_LAUNCHES
+        launches, plain_calls = read_counts()[0], read_counts()[3]
         ms = cuda_ms(lambda: model(idx_card), iters=5, warmup=1)
         ref = cpu_model(idx)
     n_layer = model.config.n_layer
-    if launches != n_layer:
+    if launches != n_layer or plain_calls:
         raise AssertionError(f"forward launched the kernel {launches} times, "
-                             f"expected {n_layer}")
+                             f"expected {n_layer}, with {plain_calls} plain calls")
     got = logits.cpu()
     err = (got - ref).abs().max().item()
     if got.shape != FORWARD_SHAPE + (vocab,) or not torch.isfinite(got).all():
@@ -529,14 +632,14 @@ def greedy_gaps(cpu_model, prompts, outputs):
 def serve_run(card: str, tag: str, adapter):
     """The serving path on ``adapter`` at full width: 8 requests, one
     prefix-cache hit, SERVE_MAX_TOKENS greedy tokens each; the forward
-    kernel's launches, the cache's integrity, and every greedy token
-    teacher-forced against the CPU plain forward. Returns (launches,
-    prompts, outputs, cpu_model)."""
-    from ray_tpu_torch.ops import attention
+    kernel's launches and no plain attention call, the cache's integrity,
+    the engine's series and llm.* events, and every greedy token
+    teacher-forced against the CPU plain forward. Returns a dict with the
+    launches, plain calls, telemetry, prompts, outputs and the CPU model."""
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = adapter.cfg
-    engine = LLMEngine(adapter)
+    engine = LLMEngine(adapter, name=tag)
     prompts = serve_prompts(cfg.vocab_size)
 
     prefills = []   # (tokens, start, ms) per adapter prefill call
@@ -551,9 +654,10 @@ def serve_run(card: str, tag: str, adapter):
         return out
 
     adapter.prefill_ctx = timed_prefill
-    attention.FLASH_FWD_LAUNCHES = 0
+    mark = flight_mark()
+    reset_counts()
     outputs, wall = drive_engine(engine, prompts, SERVE_MAX_TOKENS)
-    launches = attention.FLASH_FWD_LAUNCHES
+    launches, plain_calls = read_counts()[0], read_counts()[3]
     del adapter.prefill_ctx
 
     cold = [p for p in prefills if p[1] == 0]
@@ -561,9 +665,10 @@ def serve_run(card: str, tag: str, adapter):
     if len(hits) != 1 or hits[0][1] != SHARED_PREFIX:
         raise AssertionError(f"expected one {SHARED_PREFIX}-token prefix hit, "
                              f"got prefills {prefills}")
-    if launches < cfg.n_layer * len(cold):
+    if launches < cfg.n_layer * len(cold) or plain_calls:
         raise AssertionError(f"kernel launched {launches} times for "
-                             f"{len(cold)} cold prefills x {cfg.n_layer} layers")
+                             f"{len(cold)} cold prefills x {cfg.n_layer} layers, "
+                             f"{plain_calls} plain attention calls")
 
     n_tokens = SERVE_MAX_TOKENS * len(prompts)
     log(f"[{tag}] {len(prompts)} requests x {SERVE_MAX_TOKENS} tokens in "
@@ -572,7 +677,10 @@ def serve_run(card: str, tag: str, adapter):
     for n, start, ms in prefills:
         log(f"[{tag}] prefill {n} tokens at start {start}: {ms:.2f} ms on {card}")
     log(f"[{tag}] flash_attn_fwd launches {launches} for {len(cold)} cold "
-        f"prefills x {cfg.n_layer} layers; stats {engine.stats()}")
+        f"prefills x {cfg.n_layer} layers, plain attention calls {plain_calls}; "
+        f"stats {engine.stats()}")
+    telemetry = llm_telemetry(tag, engine, mark,
+                              ("llm.admit", "llm.finish", "llm.prefix_hit"))
 
     # teacher-forced: every greedy token is the CPU plain forward's argmax
     # to within GREEDY_TOL of the max logit at its position
@@ -582,10 +690,12 @@ def serve_run(card: str, tag: str, adapter):
     log(f"[{tag}] teacher-forced: worst greedy gap {worst:.3g} (limit {GREEDY_TOL})")
     if worst > GREEDY_TOL:
         raise AssertionError(f"a greedy token is {worst} below the CPU max logit")
-    return launches, prompts, outputs, cpu_model
+    return {"launches": launches, "plain_calls": plain_calls,
+            "tokens_per_s": n_tokens / wall, "telemetry": telemetry,
+            "prompts": prompts, "outputs": outputs, "cpu_model": cpu_model}
 
 
-def phase_serve(card: str) -> int:
+def phase_serve(card: str):
     from ray_tpu_torch.serve.llm.adapters import build_adapter
 
     adapter = build_adapter("gpt2", seed=0, device=DEVICE)
@@ -593,36 +703,70 @@ def phase_serve(card: str) -> int:
     if (cfg.n_layer, cfg.n_head, cfg.n_embd, cfg.vocab_size, cfg.block_size) \
             != SERVE_WIDTH or adapter.dtype != torch.float32:
         raise AssertionError(f"not GPT-2-124M at full width in fp32: {cfg}")
-    launches = serve_run(card, "serve", adapter)[0]
+    run = serve_run(card, "serve", adapter)
     del adapter
     torch.cuda.empty_cache()
-    return launches
+    return {k: run[k] for k in ("launches", "plain_calls", "tokens_per_s", "telemetry")}
 
 
-def device_kernel_times(prof):
-    """{kernel name: total device microseconds} from a torch.profiler run."""
-    from torch.autograd import DeviceType
+def traced_step(ts, state, batch):
+    """One ``ts.step`` inside a device-trace window the step's recorder
+    opens (``request_device_trace(1)``), its Chrome trace written to a
+    temporary directory and read back. Returns (state, metrics, what
+    ``read_device_trace`` says, host ms of the call including the window's
+    start, synchronise, stop and export, the trace's MB)."""
+    import tempfile
 
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return out
+    from ray_tpu_torch.train import _telemetry
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        if not _telemetry.request_device_trace(1, trace_dir):
+            raise AssertionError("no current recorder to open a trace window")
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        trace = ts.telemetry.device_trace.last_trace
+        if trace is None or not trace.startswith(trace_dir):
+            raise AssertionError(f"the trace window wrote no trace: {trace}")
+        trace_mb = Path(trace).stat().st_size / 1e6
+        read = _telemetry.read_device_trace(trace)
+    if not read["kernel_us"]:
+        raise AssertionError(f"the trace window holds no kernel: {read}")
+    return state, m, read, host_ms, trace_mb
+
+
+def window_line(read) -> str:
+    """The window, its kernels and where the device's idle time sits."""
+    ms = lambda us: f"{us / 1e3:.2f}"
+    runtime = sorted(read["runtime_us"].items(), key=lambda kv: -kv[1])[:5]
+    kernels = sum(read["kernel_us"].values())
+    return (f"window {ms(read['window_us'])} ms, kernels {ms(kernels)} ms "
+            f"({len(read['kernel_us'])} distinct; with copies and memsets "
+            f"{ms(kernels + read['copy_us'])} ms), device busy {ms(read['busy_us'])} ms = "
+            f"{read['busy_share']:.3f} of the window (idle before the first "
+            f"kernel {ms(read['lead_us'])} ms, between kernels {ms(read['gap_us'])} "
+            f"ms, after the last {ms(read['tail_us'])} ms); host CUDA calls "
+            + ", ".join(f"{name} {ms(us)} ms x{read['runtime_calls'][name]}"
+                        for name, us in runtime))
 
 
 def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
               profiled: bool):
     """``TrainStep(cfg)`` on the card, bf16 compute over fp32 master weights:
     one warm-up step, then ``steps`` timed steps on a repeated batch with a
-    falling loss and exactly 2L forward, L dq and L dk/dv launches per step
-    (forward + remat), then (if ``profiled``) one step under torch.profiler
-    with its largest kernels. Returns the run's numbers."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from ray_tpu_torch.ops import attention
+    falling loss and exactly 2L forward, L dq and L dk/dv launches and no
+    plain attention call per step (forward + remat), then (if ``profiled``)
+    one step inside the recorder's device-trace window
+    (``request_device_trace(1)``), read back from its Chrome trace for the
+    largest kernels and the device's busy share; the recorder's slow-step
+    flag and its train.step events. Returns the run's numbers."""
     from ray_tpu_torch.parallel.train_step import TrainStep
+    from ray_tpu_torch.train import _telemetry
 
     ts = TrainStep(cfg, device=DEVICE)
+    if _telemetry.current_recorder() is not ts.telemetry:
+        raise AssertionError("TrainStep did not make its recorder current")
+    mark = flight_mark()
     state = ts.init(torch.Generator().manual_seed(0))
     if any(p.dtype != torch.float32 for p in state["params"].parameters()):
         raise AssertionError("master weights are not fp32")
@@ -644,14 +788,11 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
     warm_s = time.perf_counter() - t0
     losses, norms, step_ms, counts = [m["loss"].item()], [m["grad_norm"].item()], [], []
     for _ in range(steps):
-        attention.FLASH_FWD_LAUNCHES = 0
-        attention.FLASH_BWD_DQ_LAUNCHES = 0
-        attention.FLASH_BWD_DKV_LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         state, m = ts.step(state, batch)   # ends in a synchronise (telemetry)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        counts.append((attention.FLASH_FWD_LAUNCHES, attention.FLASH_BWD_DQ_LAUNCHES,
-                       attention.FLASH_BWD_DKV_LAUNCHES))
+        counts.append(read_counts())
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
     summary = ts.telemetry.summary()
@@ -663,7 +804,8 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
         f"warm-up {warm_s:.2f} s, then steps {[round(x, 2) for x in step_ms]} ms "
         f"on {card}")
     log(f"[{tag}] loss {[round(x, 4) for x in losses]}, grad_norm "
-        f"{[round(x, 4) for x in norms]}, launches per step (fwd, dq, dkv) {counts}")
+        f"{[round(x, 4) for x in norms]}, launches and plain calls per step "
+        f"(fwd, dq, dkv, plain) {counts}")
     log(f"[{tag}] recorder: {json.dumps(summary)}; at the median step "
         f"{batch_shape[0] * batch_shape[1] / (statistics.median(step_ms) / 1e3):.0f} "
         f"tokens/s")
@@ -671,9 +813,10 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
         f"{summary.get('mfu')} by the recorder's 12 L d^2 + V d count, "
         f"{exact_mfu:.6f} by the exact 6N count of active parameters "
         f"({6 * n_active:.4g} FLOP per token) over 989 TFLOP/s")
-    want = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+    want = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer, 0)
     if any(c != want for c in counts):
-        raise AssertionError(f"launches per step {counts}, expected {want}")
+        raise AssertionError(f"launches and plain calls per step {counts}, "
+                             f"expected {want}")
     if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
         raise AssertionError(f"loss not finite and falling: {losses}")
     out = {"step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
@@ -683,25 +826,41 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
            "median_tokens_per_s": batch_shape[0] * batch_shape[1]
                                   / (statistics.median(step_ms) / 1e3),
            "launches": [sum(c[i] for c in counts) for i in range(3)],
-           "launches_per_step": list(want), "summary": summary}
+           "plain_calls": sum(c[3] for c in counts),
+           "launches_per_step": list(want[:3]), "summary": summary}
 
-    if profiled:   # where one step's device time goes
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, m = ts.step(state, batch)
-            prof_ms = (time.perf_counter() - t0) * 1e3
-        kernel_us = device_kernel_times(prof)
+    if profiled:   # where one step's device time goes: the recorder's window
+        state, m, read, prof_ms, trace_mb = traced_step(ts, state, batch)
+        kernel_us = read["kernel_us"]
         busy_ms = sum(kernel_us.values()) / 1e3
         attn_ms = sum(us for name, us in kernel_us.items() if "flash_" in name) / 1e3
         top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:16]
-        log(f"[{tag}] profiled step: wall {prof_ms:.2f} ms, kernels {busy_ms:.2f} ms "
-            f"({len(kernel_us)} distinct), hand-written attention kernels "
-            f"{attn_ms:.2f} ms = {attn_ms / max(busy_ms, 1e-9):.3f} of kernel time")
+        log(f"[{tag}] profiled step (device-trace window, {trace_mb:.1f} MB Chrome "
+            f"trace; host {prof_ms:.2f} ms with the window's start, stop and "
+            f"export): {window_line(read)}; hand-written attention kernels "
+            f"{attn_ms:.2f} ms = {attn_ms / max(busy_ms, 1e-9):.3f} of kernel time "
+            f"on {card}")
         for name, us in top:
             log(f"[{tag}]   {us / 1e3:9.3f} ms  {name[:110]}")
+        if not kernel_us or attn_ms <= 0:
+            raise AssertionError(f"the trace window holds no attention kernel: {read}")
         out.update(profiled_step_ms=prof_ms, attention_ms_profiled=attn_ms,
-                   kernel_ms_profiled=busy_ms)
-        del prof
+                   kernel_ms_profiled=busy_ms,
+                   kernel_and_copy_ms_profiled=busy_ms + read["copy_us"] / 1e3,
+                   window_ms=read["window_us"] / 1e3,
+                   device_busy_ms=read["busy_us"] / 1e3,
+                   device_busy_share=read["busy_share"],
+                   idle_lead_ms=read["lead_us"] / 1e3, idle_gap_ms=read["gap_us"] / 1e3,
+                   idle_tail_ms=read["tail_us"] / 1e3)
+    slow = ts.telemetry.pop_slow_step()
+    steps_seen = flight_events(mark, "train.step")
+    log(f"[{tag}] slow-step flag: {json.dumps(slow) if slow else 'none raised'} "
+        f"(factor {ts.telemetry._slow_factor} x the trailing median); "
+        f"train.step events {steps_seen}")
+    if steps_seen.get("train.step", 0) != steps + 1 + int(profiled):
+        raise AssertionError(f"expected {steps + 1 + int(profiled)} train.step "
+                             f"events, got {steps_seen}")
+    out.update(slow_step=slow, train_step_events=steps_seen.get("train.step", 0))
     del ts, state, batch, m
     torch.cuda.empty_cache()
     return out
@@ -718,6 +877,35 @@ def phase_train(card: str):
                       profiled=True)
     train["parity"] = train_parity(card, "train", GPT2Config.gpt2_124m(dtype=torch.float32))
     return train
+
+
+def first_steps_probe(card: str, tag: str, cfg):
+    """A fresh ``TrainStep(cfg)`` on the card: the warm-up step untraced,
+    then the two next steps each inside its own device-trace window. The
+    timed runs' first step after the warm-up is an outlier for Llama; these
+    windows show what that step does on the host and the card beside a
+    steady one. No step here is one of the timed steps."""
+    from ray_tpu_torch.parallel.train_step import TrainStep
+
+    ts = TrainStep(cfg, device=DEVICE)
+    state = ts.init(torch.Generator().manual_seed(0))
+    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, TRAIN_BATCH)
+    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    t0 = time.perf_counter()
+    state, m = ts.step(state, batch)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    out = {"warm_up_ms": warm_ms}
+    for name in ("first_after_warm_up", "second_after_warm_up"):
+        state, m, read, host_ms, _ = traced_step(ts, state, batch)
+        log(f"[{tag}] probe, {name.replace('_', ' ')} step (fresh TrainStep, "
+            f"warm-up {warm_ms:.1f} ms untraced): {window_line(read)} on {card}")
+        out[name] = {k: read[k] for k in ("window_us", "busy_us", "busy_share",
+                                          "lead_us", "gap_us", "tail_us",
+                                          "runtime_us", "runtime_calls")}
+        out[name]["kernel_ms"] = sum(read["kernel_us"].values()) / 1e3
+    del ts, state, batch, m
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_parity(card: str, tag: str, cfg):
@@ -778,15 +966,19 @@ def phase_llama(card: str):
     adapter = build_adapter("llama-160m", seed=0, device=DEVICE)
     if adapter.dtype != torch.float32 or adapter.cfg != cfg:
         raise AssertionError(f"not Llama-160M in fp32: {adapter.cfg}")
-    serve_launches, prompts, outputs, cpu_model = serve_run(card, "llama", adapter)
+    serve = serve_run(card, "llama", adapter)
     del adapter
     torch.cuda.empty_cache()
 
     train = train_run(card, "llama", "llama-160m", LlamaConfig.llama_160m(),
                       TRAIN_BATCH, TRAIN_STEPS, profiled=True)
+    train["first_steps"] = first_steps_probe(card, "llama", LlamaConfig.llama_160m())
     train["parity"] = train_parity(card, "llama", cfg)
-    return {"serve_launches": serve_launches, "train": train, "prompts": prompts,
-            "outputs": outputs, "cpu_model": cpu_model}
+    return {"serve_launches": serve["launches"], "serve_plain_calls": serve["plain_calls"],
+            "serve_tokens_per_s": serve["tokens_per_s"],
+            "serve_telemetry": serve["telemetry"], "train": train,
+            "prompts": serve["prompts"], "outputs": serve["outputs"],
+            "cpu_model": serve["cpu_model"]}
 
 
 def phase_spec(card: str, prompts, serve_outputs, cpu_model):
@@ -795,8 +987,8 @@ def phase_spec(card: str, prompts, serve_outputs, cpu_model):
     target's own weights from its seed; llama-tiny at vocabulary 32000).
     Every speculative stream must equal the plain one; where one differs,
     its first differing token and every token after must lie within
-    GREEDY_TOL of the CPU plain forward's max logit (a near tie)."""
-    from ray_tpu_torch.ops import attention
+    GREEDY_TOL of the CPU plain forward's max logit (a near tie). Each
+    engine's series and llm.* events are read as in the serve phase."""
     from ray_tpu_torch.serve.llm import LLMEngine
     from ray_tpu_torch.serve.llm.adapters import build_adapter
 
@@ -806,8 +998,10 @@ def phase_spec(card: str, prompts, serve_outputs, cpu_model):
                   "llama-tiny", {"vocab_size": 32000, "block_size": 1024}, seed=0,
                   device=DEVICE)}
     n_tokens = SERVE_MAX_TOKENS * len(prompts)
-    attention.FLASH_FWD_LAUNCHES = 0
-    plain, wall = drive_engine(LLMEngine(target), prompts, SERVE_MAX_TOKENS)
+    reset_counts()
+    mark = flight_mark()
+    engine = LLMEngine(target, name="spec-plain")
+    plain, wall = drive_engine(engine, prompts, SERVE_MAX_TOKENS)
     # the plain engine again, without the serve phase's prefill timing: the
     # same streams, or (checked against the CPU) near-greedy ones
     replay_equal = plain == serve_outputs
@@ -817,9 +1011,13 @@ def phase_spec(card: str, prompts, serve_outputs, cpu_model):
             raise AssertionError("the plain replay leaves the greedy stream")
     log(f"[spec] plain: {n_tokens / wall:.1f} tokens/s on {card}; streams equal to "
         f"the llama serve phase's: {replay_equal}")
-    results = {"plain_tokens_per_s": n_tokens / wall, "plain_replay_equal": replay_equal}
+    results = {"plain_tokens_per_s": n_tokens / wall, "plain_replay_equal": replay_equal,
+               "plain_telemetry": llm_telemetry(
+                   "spec", engine, mark, ("llm.admit", "llm.finish", "llm.prefix_hit"))}
     for name, draft in drafts.items():
-        engine = LLMEngine(target, draft_adapter=draft, spec_k=SPEC_K)
+        engine = LLMEngine(target, draft_adapter=draft, spec_k=SPEC_K,
+                           name=f"spec-{name.split()[0]}")
+        mark = flight_mark()
         outputs, wall = drive_engine(engine, prompts, SERVE_MAX_TOKENS)
         differ = {i: next(c for c, (a, b) in enumerate(zip(toks, plain[i])) if a != b)
                   for i, toks in outputs.items() if toks != plain[i]}
@@ -833,13 +1031,21 @@ def phase_spec(card: str, prompts, serve_outputs, cpu_model):
                "tokens_per_s": n_tokens / wall, "streams_equal": len(prompts) - len(differ),
                "first_differences": differ, "worst_gap_after_difference": worst}
         log(f"[spec] draft {name}, k = {SPEC_K}: {json.dumps(res)} on {card}")
+        res["telemetry"] = llm_telemetry(
+            "spec", engine, mark,
+            ("llm.admit", "llm.finish", "llm.prefix_hit", "llm.spec_verify"))
+        accept = res["telemetry"]["series"]["ray_tpu_llm_spec_acceptance"]
+        if abs(accept - engine.spec_acceptance()) > 1e-12:
+            raise AssertionError(f"acceptance series {accept} != the engine's "
+                                 f"{engine.spec_acceptance()}")
         if worst > GREEDY_TOL:
             raise AssertionError(f"speculative stream with draft {name} leaves the "
                                  f"plain stream by more than a near tie: {res}")
         results[name] = res
-    results["launches"] = attention.FLASH_FWD_LAUNCHES
-    if results["launches"] == 0:
-        raise AssertionError("the spec runs launched no forward kernel")
+    results["launches"], results["plain_calls"] = read_counts()[0], read_counts()[3]
+    if results["launches"] == 0 or results["plain_calls"]:
+        raise AssertionError(f"the spec runs launched {results['launches']} forward "
+                             f"kernels, with {results['plain_calls']} plain calls")
     if results["same-seed llama-160m"]["acceptance"] < 0.5:
         raise AssertionError(f"a draft with the target's own weights accepted "
                              f"{results['same-seed llama-160m']['acceptance']}")
@@ -869,13 +1075,60 @@ def routing_of(model, idx):
     return out
 
 
+def serve_against_cpu(card: str, tag: str, model: str, config, prompts, engine_kw,
+                      expect_events=("llm.admit", "llm.finish")):
+    """``model`` from the zoo (``config`` its model_config) serves
+    ``prompts`` (4 requests) x 16 greedy tokens on the card and on the CPU
+    from one seed, through
+    engines built with ``engine_kw``. Where a card stream differs, every
+    token from the first difference on must lie within GREEDY_TOL of the
+    CPU adapter's max logit (a near tie). Returns (streams equal, worst
+    gap, the card run's (forward, dq, dk/dv launches, plain calls), its
+    telemetry as :func:`llm_telemetry` reads it, expecting
+    ``expect_events``)."""
+    from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.serve.llm.adapters import build_adapter
+
+    streams, adapters = {}, {}
+    for key, dev in (("card", DEVICE), ("cpu", "cpu")):
+        adapters[key] = build_adapter(model, config, seed=0, device=dev)
+        engine = LLMEngine(adapters[key], name=f"{tag}-{key}", **engine_kw)
+        mark = flight_mark()
+        reset_counts()
+        rids = [engine.submit(p, SamplingParams(max_tokens=16)) for p in prompts]
+        engine.run_until_drained()
+        streams[key] = [engine.pull(r)[0] for r in rids]
+        engine.cache.assert_no_leaks()
+        if any(len(t) != 16 for t in streams[key]):
+            raise AssertionError(f"{model} on {dev}: {streams[key]}")
+        if key == "card":
+            counts = read_counts()
+            log(f"[{tag}] {model} on the card: (fwd, dq, dkv) launches and plain "
+                f"attention calls {counts}; engine stats {engine.stats()}")
+            telemetry = llm_telemetry(tag, engine, mark, expect_events)
+    worst = 0.0
+    for p, card_toks, cpu_toks in zip(prompts, streams["card"], streams["cpu"]):
+        if card_toks == cpu_toks:
+            continue
+        first = next(c for c, (a, b) in enumerate(zip(card_toks, cpu_toks)) if a != b)
+        for c in range(first, len(card_toks)):
+            logits = adapters["cpu"].prefill(np.asarray(p + card_toks[:c]))[0]
+            worst = max(worst, (logits.max() - logits[card_toks[c]]).item())
+    equal = sum(a == b for a, b in zip(streams["card"], streams["cpu"]))
+    log(f"[{tag}] {model} serving {len(prompts)} requests x 16 tokens: {equal} of "
+        f"{len(prompts)} card streams equal the CPU's; worst gap after a difference "
+        f"{worst:.3g} (limit {GREEDY_TOL})")
+    if worst > GREEDY_TOL:
+        raise AssertionError(f"{model} card streams leave the CPU's: {streams}")
+    return {"streams_equal": equal, "worst_gap": worst, "counts": list(counts),
+            "telemetry": telemetry}
+
+
 def phase_moe(card: str):
     """GPT-2-MoE (GPT2MoEConfig(): GPT-2-124M widths, 8 experts, top-2,
     an MoE block every 2nd layer) trains on the card; one fp32 step against
     the CPU, dispatch masks first; gpt2-moe-tiny serves against the CPU."""
     from ray_tpu_torch.models.gpt2_moe import GPT2MoEConfig, init_params
-    from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
-    from ray_tpu_torch.serve.llm.adapters import build_adapter
 
     cfg = GPT2MoEConfig()
     if (cfg.n_layer, cfg.n_head, cfg.n_embd, cfg.vocab_size, cfg.moe.num_experts,
@@ -912,35 +1165,120 @@ def phase_moe(card: str):
     # the CPU from one seed; the streams must be equal
     prompts = [np.random.default_rng(i).integers(0, 512, n).tolist()
                for i, n in enumerate((5, 17, 40, 90))]
-    streams, adapters = {}, {}
-    for key, dev in (("card", DEVICE), ("cpu", "cpu")):
-        adapters[key] = build_adapter("gpt2-moe-tiny", seed=0, device=dev)
-        engine = LLMEngine(adapters[key])
-        rids = [engine.submit(p, SamplingParams(max_tokens=16)) for p in prompts]
-        engine.run_until_drained()
-        streams[key] = [engine.pull(r)[0] for r in rids]
-        engine.cache.assert_no_leaks()
-        if any(len(t) != 16 for t in streams[key]):
-            raise AssertionError(f"gpt2-moe-tiny on {dev}: {streams[key]}")
-    # where a card stream differs, every token from the first difference on
-    # must lie within GREEDY_TOL of the CPU adapter's max logit (a near tie)
-    worst = 0.0
-    for p, card_toks, cpu_toks in zip(prompts, streams["card"], streams["cpu"]):
-        if card_toks == cpu_toks:
-            continue
-        first = next(c for c, (a, b) in enumerate(zip(card_toks, cpu_toks)) if a != b)
-        for c in range(first, len(card_toks)):
-            logits = adapters["cpu"].prefill(np.asarray(p + card_toks[:c]))[0]
-            worst = max(worst, (logits.max() - logits[card_toks[c]]).item())
-    equal = sum(a == b for a, b in zip(streams["card"], streams["cpu"]))
-    log(f"[moe] gpt2-moe-tiny serving 4 requests x 16 tokens: {equal} of 4 card "
-        f"streams equal the CPU's; worst gap after a difference {worst:.3g} "
-        f"(limit {GREEDY_TOL})")
-    if worst > GREEDY_TOL:
-        raise AssertionError(f"gpt2-moe-tiny card streams leave the CPU's: {streams}")
-    train["serve_streams_equal"] = equal
+    served = serve_against_cpu(card, "moe", "gpt2-moe-tiny", None, prompts, {})
+    if served["counts"][3]:
+        raise AssertionError(f"gpt2-moe-tiny made plain attention calls: {served}")
+    train["serve_streams_equal"] = served["streams_equal"]
     torch.cuda.empty_cache()
     return train
+
+
+def check_attention(q, k, v, do):
+    """The public forward and backward on the card (the kernels, padded or
+    chunked as the shape needs) against the plain version in fp32 on the
+    same inputs: the (forward, dq, dk/dv launches, plain calls) they took,
+    the errors (o and lse absolute, dq/dk/dv normalised) and a digest."""
+    from ray_tpu_torch.ops import attention
+
+    reset_counts()
+    o, lse = attention.flash_causal_attention_fwd(q, k, v)
+    grads = attention.flash_causal_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    o_ref, lse_ref = attention.plain_causal_attention_fwd(q.float(), k.float(), v.float())
+    ref = attention.plain_causal_attention_bwd(q.float(), k.float(), v.float(),
+                                               o.float(), lse, do.float())
+    fp32 = q.dtype == torch.float32
+    out = {"shape": list(q.shape), "dtype": dtype_name(q.dtype),
+           "kernel_head_dim": attention.kernel_head_dim(q.shape[-1]),
+           "counts": list(counts),
+           "err_o": (o.float() - o_ref).abs().max().item(),
+           "err_lse": (lse - lse_ref).abs().max().item(),
+           "err": {n: norm_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, ref)},
+           "tol": [FP32_TOL if fp32 else BF16_TOL, BWD_FP32_TOL if fp32 else BWD_BF16_TOL],
+           "digest": digest(o, lse, *grads)}
+    if (out["err_o"] > out["tol"][0] or out["err_lse"] > out["tol"][0]
+            or max(out["err"].values()) > out["tol"][1]):
+        raise AssertionError(f"attention kernels disagree with the plain version: {out}")
+    return out, o, lse
+
+
+def phase_head_dims(card: str):
+    """Head dims the kernels are not built for (16, 48) run on them,
+    zero-padded to the next kernel size, with no plain call, on a serving
+    path, a training step and alone against the plain version; a B * H
+    above the grid's 65535 runs the kernels in chunks."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel.train_step import TrainStep
+
+    # gpt2-tiny at head dim 16, 4 requests through a pool small enough to
+    # preempt, against the CPU
+    prompts = [np.random.default_rng(i).integers(0, 96, n).tolist()
+               for i, n in enumerate((5, 17, 40, 30))]
+    served = serve_against_cpu(card, "head_dims", "gpt2-tiny", TINY_SERVE, prompts,
+                               TINY_POOL, ("llm.admit", "llm.finish", "llm.preempt"))
+    if served["counts"][0] <= 0 or served["counts"][1:] != [0, 0, 0]:
+        raise AssertionError(f"head dim 16 should take only forward launches: {served}")
+    if not served["telemetry"]["preemptions"]:
+        raise AssertionError("the small pool preempted nothing")
+
+    # one GPT2Config(n_head=16) bf16 step (head dim 48) at full width
+    cfg = GPT2Config.gpt2_124m(n_head=16)
+    ts = TrainStep(cfg, device=DEVICE)
+    state = ts.init(torch.Generator().manual_seed(0))
+    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, HEAD48_TRAIN_BATCH)
+    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    reset_counts()
+    t0 = time.perf_counter()
+    state, m = ts.step(state, batch)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    loss, norm = m["loss"].item(), m["grad_norm"].item()
+    log(f"[head_dims] GPT2Config(n_head=16) bf16 step, head dim "
+        f"{cfg.n_embd // cfg.n_head}, batch {HEAD48_TRAIN_BATCH}: loss {loss:.4f}, "
+        f"grad_norm {norm:.4f}, {step_ms:.1f} ms (first call) on {card}; (fwd, dq, "
+        f"dkv) launches and plain calls {counts}")
+    per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer, 0)
+    if counts != per_step or not np.isfinite([loss, norm]).all():
+        raise AssertionError(f"head dim 48 step: counts {counts} (want {per_step}), "
+                             f"loss {loss}, grad_norm {norm}")
+    del ts, state, batch, m
+    torch.cuda.empty_cache()
+    parity = train_parity(card, "head_dims", GPT2Config.gpt2_124m(
+        n_head=16, dtype=torch.float32))
+
+    # the padded kernels alone at the shapes of the two paths above
+    padded = []
+    for shape in PADDED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(DEVICE).manual_seed(shape[-1])
+            q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                           for _ in range(4))
+            case, _, _ = check_attention(q, k, v, do)
+            log(f"[head_dims] padded {json.dumps(case)}")
+            if case["counts"] != [1, 1, 1, 0]:
+                raise AssertionError(f"padded head dim left the kernels: {case}")
+            padded.append(case)
+            del q, k, v, do
+
+    # B * H = 65544: two chunks of each kernel, against the plain version
+    gen = torch.Generator(DEVICE).manual_seed(2)
+    q, k, v, do = (torch.randn(BIG_BH_SHAPE, generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    big, o, lse = check_attention(q, k, v, do)
+    # the last batch element is the second chunk: alone it must give the same bits
+    o_last, lse_last = attention.flash_causal_attention_fwd(q[-1:], k[-1:], v[-1:])
+    big["second_chunk_bitwise"] = torch.equal(o_last, o[-1:]) and torch.equal(
+        lse_last, lse[-1:])
+    log(f"[head_dims] B * H = {BIG_BH_SHAPE[0] * BIG_BH_SHAPE[1]}: {json.dumps(big)}")
+    if big["counts"] != [2, 2, 2, 0] or not big["second_chunk_bitwise"]:
+        raise AssertionError(f"chunked kernels: {big}")
+    del q, k, v, do, o, lse, o_last, lse_last
+    torch.cuda.empty_cache()
+    return {"head_dim_16_serve": served, "head_dim_48_train": {
+        "counts": list(counts), "loss": loss, "grad_norm": norm, "step_ms": step_ms,
+        "fp32_parity": parity}, "padded": padded, "big_bh": big}
 
 
 def main() -> int:
@@ -958,11 +1296,12 @@ def main() -> int:
     fwd_cases = phase_kernel(card)
     bwd_cases = phase_bwd(card)
     phase_model(card)
-    serve_launches = phase_serve(card)
+    serve = phase_serve(card)
     train = phase_train(card)
     llama = phase_llama(card)
     spec = phase_spec(card, llama["prompts"], llama["outputs"], llama.pop("cpu_model"))
     moe = phase_moe(card)
+    head_dims = phase_head_dims(card)
 
     fwd_head = next(c for c in fwd_cases if "ms" in c and c["shape"] == list(HEADLINE[0])
                     and c["dtype"] == dtype_name(HEADLINE[1]))
@@ -970,6 +1309,13 @@ def main() -> int:
                     and c["dtype"] == dtype_name(HEADLINE[1]))
 
     at = {"shape": list(HEADLINE[0]), "dtype": dtype_name(HEADLINE[1])}
+    # plain attention calls on each full-width path: all must be 0
+    plain_calls = {"train": train["plain_calls"], "serve": serve["plain_calls"],
+                   "llama_train": llama["train"]["plain_calls"],
+                   "llama_serve": llama["serve_plain_calls"],
+                   "spec": spec["plain_calls"], "moe_train": moe["plain_calls"]}
+    if any(plain_calls.values()):
+        raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
     kernels = [{
         "name": "flash_attn_fwd",
@@ -977,7 +1323,7 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:42",
         "launches": train["launches"][0],
-        "launches_by_path": {"train": train["launches"][0], "serve": serve_launches,
+        "launches_by_path": {"train": train["launches"][0], "serve": serve["launches"],
                              "llama_train": llama["train"]["launches"][0],
                              "llama_serve": llama["serve_launches"],
                              "spec": spec["launches"],
@@ -992,6 +1338,7 @@ def main() -> int:
         "bound_ms": fwd_head["bound_ms"],
         "bound_by": fwd_head["bound_by"],
         "library_ms": fwd_head["library_ms"],
+        "plain_calls_by_path": plain_calls,
         "design": DESIGN["flash_attn_fwd"],
         "tflops": fwd_head["tflops"],
         "bound_share": fwd_head["bound_share"],
@@ -1020,6 +1367,8 @@ def main() -> int:
             "bound_ms": bwd_head[kernel]["bound_ms"],
             "bound_by": bwd_head[kernel]["bound_by"],
             "library_ms": bwd_head["library_ms"],
+            "plain_calls_by_path": {path: plain_calls[path] for path in
+                                    ("train", "llama_train", "moe_train")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -1037,6 +1386,8 @@ def main() -> int:
     log(f"[llama] {json.dumps(llama)}")
     log(f"[spec] {json.dumps(spec)}")
     log(f"[moe] {json.dumps(moe)}")
+    log(f"[serve] {json.dumps(serve)}")
+    log(f"[head_dims] {json.dumps(head_dims)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,14 +9,18 @@ H100 (``csrc/``, CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use),
 with its plain PyTorch version beside it.
 
 What is ported so far (the serving and training slices, every model
-family of the JAX zoo, speculative decoding):
+family of the JAX zoo, speculative decoding, the metrics and the flight
+recorder):
 
-  ops/attention.py       causal attention, differentiable; on a CUDA tensor
-                         the flash forward kernel ``csrc/flash_attn_fwd.cu``
-                         (the port of ``_fwd_kernel``) and the dq and dk/dv
-                         backward kernels ``csrc/flash_attn_bwd.cu`` (the
-                         ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``),
-                         on a CPU tensor their plain versions
+  ops/attention.py       causal attention, differentiable; where the kernels
+                         take the head dim (32, 64, 128) and type, on a CUDA
+                         tensor the flash forward kernel
+                         ``csrc/flash_attn_fwd.cu`` (the port of
+                         ``_fwd_kernel``) and the dq and dk/dv backward
+                         kernels ``csrc/flash_attn_bwd.cu`` (the ports of
+                         ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), on a
+                         CPU tensor their plain versions; elsewhere the
+                         einsum path, counted on the card
   ops/moe.py             MoE FFN: static-capacity top-k routing, the
                          Switch load-balance loss, dispatch/combine einsums
   models/gpt2.py         GPT-2 as an ``nn.Module`` (fp32 parameters, compute
@@ -28,9 +32,16 @@ family of the JAX zoo, speculative decoding):
                          GPT2MoEConfig: AdamW with optax's clip and
                          weight-decay mask, the MoE aux loss, step /
                          multi_step
-  train/_telemetry.py    StepRecorder arithmetic: goodput, tokens/s, MFU, HBM
+  train/_telemetry.py    StepRecorder: goodput, tokens/s, MFU, HBM, the
+                         ray_tpu_train_* series, slow-step and compile-storm
+                         flags, a torch.profiler device-trace window
+  util/metrics.py        Counter, Gauge, Histogram over a process-global
+                         record table (drain_records)
+  _private/flight_recorder.py  per-process ring of structured events
+                         (train.step, llm.*)
   serve/llm/             LLM engine with prefix caching and speculative
-                         decoding (``draft_adapter``/``spec_k``), scheduler,
+                         decoding (``draft_adapter``/``spec_k``), its
+                         ray_tpu_llm_* series and llm.* events, scheduler,
                          paged KV cache on the device, GPT-2, GPT-2-MoE,
                          Llama and fake adapters (zoo: gpt2-tiny, gpt2,
                          gpt2-moe-tiny, llama-tiny, llama-160m, fake)

@@ -18,6 +18,11 @@ embedding rows are cast to ``dtype``; the tied head (``Embed.attend``)
 computes in ``dtype``. So a bf16 config gives bf16 logits, as JAX's does,
 and its gradients land on fp32 parameters.
 
+Attention follows ``config.use_flash_attention`` (``attention_for``), as
+in flax: on, it is ``causal_attention`` (the flash kernels on the card, at
+any head dim up to 128); off, the einsum path (fp32 scores, a causal mask
+of -1e30, the softmax cast to ``dtype``). ``dropout`` is declared and never read, as in the flax model.
+
 Each block is checkpointed while grad is enabled (``config.remat``), the
 counterpart of ``nn.remat(Block)``: its activations are recomputed in the
 backward pass, so the attention forward kernel runs twice per block per
@@ -39,7 +44,7 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import _flax
 from ray_tpu_torch.models._flax import flax_init_
 from ray_tpu_torch.models._flax import flax_tensors as _flax_tensors  # noqa: F401
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.attention import attention_for
 
 LAYERNORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -51,7 +56,9 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     n_embd: int = 768
+    dropout: float = 0.0                   # declared and never read, as in flax
     dtype: torch.dtype = torch.bfloat16   # compute type; params stay fp32
+    use_flash_attention: bool = True       # else the einsum path
     remat: bool = True                     # checkpoint each block under grad
 
     @classmethod
@@ -114,6 +121,7 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         self.n_head = cfg.n_head
+        self.attention = attention_for(cfg)
         self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg.dtype, device)
         self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg.dtype, device)
 
@@ -125,7 +133,7 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x):
         B, T, C = x.shape
-        y = causal_attention(*self.qkv(x))
+        y = self.attention(*self.qkv(x))
         return self.c_proj(y.reshape(B, T, C))
 
 

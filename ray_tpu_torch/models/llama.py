@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import _flax
 from ray_tpu_torch.models.gpt2 import Dense, Embedding, loss_fn, num_params  # noqa: F401
-from ray_tpu_torch.ops.attention import causal_attention, plain_causal_attention
+from ray_tpu_torch.ops.attention import attention_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +55,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16   # compute type; params stay fp32
-    use_flash_attention: bool = True       # else the plain masked softmax
+    use_flash_attention: bool = True       # else the einsum path
     remat: bool = True                     # checkpoint each block under grad
 
     @property
@@ -133,6 +133,7 @@ class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.attention = attention_for(cfg)
         hd, dt = cfg.head_dim, cfg.dtype
         self.wq = Dense(cfg.n_embd, cfg.n_head * hd, dt, device, bias=False)
         self.wk = Dense(cfg.n_embd, cfg.n_kv_head * hd, dt, device, bias=False)
@@ -158,11 +159,7 @@ class LlamaAttention(nn.Module):
         q, k, v = self.qkv(x, torch.arange(T, device=x.device) + pos_offset)
         rep = cfg.n_head // cfg.n_kv_head
         k, v = repeat_kv(k, rep), repeat_kv(v, rep)
-        if cfg.use_flash_attention:
-            y = causal_attention(q, k, v)
-        else:
-            y = plain_causal_attention(*(t.transpose(1, 2) for t in (q, k, v))
-                                       ).transpose(1, 2)
+        y = self.attention(q, k, v)
         return self.wo(y.reshape(B, T, C))
 
 

@@ -12,13 +12,31 @@ The public surface of ``ray_tpu/ops/attention.py``, with the same layouts:
   causal_attention(q, k, v)            (B, T, H, D) -> (B, T, H, D),
                                        differentiable
 
-Dispatch is by the tensor's device, with no fallback: a CUDA tensor always
-launches the kernels (``csrc/flash_attn_fwd.cu`` forward,
-``csrc/flash_attn_bwd.cu`` dq and dk/dv; the wrappers raise on a dtype,
-head dim, layout or alignment the kernels do not take), a CPU tensor always
-takes the plain versions. The JAX package's rule (kernel only on a TPU, only
-for T >= 256 with T % 128 == 0) was a TPU tiling constraint; the CUDA
-kernels mask their own ragged edges and take every T >= 1.
+Dispatch is decided by the device alone: a CUDA tensor goes to the kernels
+(``csrc/flash_attn_fwd.cu`` forward, ``csrc/flash_attn_bwd.cu`` dq and
+dk/dv), a CPU tensor to their plain versions, any other device raises.
+There is no silent fallback: on the card, what the kernels cannot take
+raises. The kernels are built for head dims of 32, 64 and 128; every
+other head dim up to 128 is computed at the next of those
+(:func:`kernel_head_dim`, :func:`padded_fwd`, :func:`padded_bwd`): q, k and
+v are zero-padded along D, q is scaled by sqrt(d_pad / d) so that the
+kernel's 1 / sqrt(d_pad) gives the model's 1 / sqrt(d), the outputs are
+sliced back to D and dq is scaled by the same factor. So gpt2-tiny (head
+dim 16) and ``GPT2Config(n_head=16)`` (head dim 48) run on the kernels, as
+the JAX package's kernel takes them. A head dim above 128, a type other
+than fp32 or bf16, or a layout or alignment the kernels do not take raises
+on the card. The JAX package's other limits (a TPU only, T >= 256 with
+T % 128 == 0) were TPU tiling constraints; the CUDA kernels mask their own
+ragged edges and take every T >= 1. The grid's second axis holds at most
+65535 (b, h) slices, so the host wrappers launch a larger B * H in
+contiguous chunks of at most 65532 slices of the (B * H, T, D) view, one
+launch (and one count) each.
+
+A model picks its attention through :func:`attention_for`: the kernels
+(:func:`causal_attention`) with ``use_flash_attention`` on, the flax
+models' einsum path (:func:`einsum_causal_attention`) with it off. Each
+call of the einsum path on the card adds one to ``PLAIN_ATTENTION_CALLS``,
+so a run can show that its path never left the kernels.
 
 Inside the C entry points the kernel is chosen by the dtype, one kernel per
 dtype: bfloat16 runs the forward, dq and dk/dv on the tensor cores (wgmma
@@ -45,14 +63,39 @@ import torch
 
 NEG_INF = -1e30
 
-# Launches of each kernel (plain integers; CPU calls never touch them).
+# Launches of each kernel (plain integers; CPU calls never touch them), and
+# calls on the card of the einsum path (a config's use_flash_attention off).
 # chip_smoke.py resets them to show the main path used the kernels.
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
+PLAIN_ATTENTION_CALLS = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+# (b, h) slices per launch: at most 65535 (the grid's second axis), and a
+# multiple of 4 so that every chunk's fp32 lse and delta rows, like its
+# q/k/v/do tiles, start on a 16-byte boundary
+_CHUNK_BH = 65532
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels compute a head dim ``d`` at: ``d`` where
+    they are built for it (32, 64, 128), else the next of those above it;
+    raises above 128."""
+    for size in _KERNEL_HEAD_DIMS:
+        if d <= size:
+            return size
+    raise ValueError(f"the attention kernels take head dims up to "
+                     f"{_KERNEL_HEAD_DIMS[-1]}, got {d}")
+
+
+def _pad_head(x, size: int, factor: float = 1.0):
+    """``x`` (..., D) times ``factor`` (in fp32, then back to x's type),
+    zero-padded along D to ``size``: a fresh contiguous tensor."""
+    if factor != 1.0:
+        x = (x.float() * factor).to(x.dtype)
+    return torch.nn.functional.pad(x, (0, size - x.shape[-1]))
 
 
 # --------------------------------------------------------------------------
@@ -168,8 +211,8 @@ def _check_kernel_inputs(q, k, v) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_aligned(name, x)
     b, h, t, _ = q.shape
-    if t < 1 or not 1 <= b * h <= 65535:
-        raise ValueError(f"flash_attn_fwd takes T >= 1 and 1 <= B*H <= 65535, "
+    if t < 1 or b * h < 1:
+        raise ValueError(f"flash_attn_fwd takes T >= 1 and B*H >= 1, "
                          f"got {tuple(q.shape)}")
 
 
@@ -203,29 +246,46 @@ def _check_bwd_inputs(q, k, v, do, lse, delta, o=None) -> None:
         _check_rows("delta", delta, q)
 
 
+def _chunks(bh: int):
+    """(start, count) of each launch over ``bh`` (b, h) slices."""
+    return [(i, min(_CHUNK_BH, bh - i)) for i in range(0, bh, _CHUNK_BH)]
+
+
+def _slices(x, start: int, count: int):
+    """Rows [start, start + count) of ``x`` viewed as (B * H, ...): a
+    contiguous view, checked to start on a 16-byte boundary (TMA)."""
+    part = x.reshape((-1,) + tuple(x.shape[2:]))[start:start + count]
+    _check_aligned("a chunk", part)
+    return part
+
+
 def _kernel_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v)
-    b, h, t, d = q.shape
+    b, h, t, _ = q.shape
     fn, err = _kernel()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), b * h, t, d, _KERNEL_DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attn_fwd launch failed: {err(rc).decode()} (cudaError {rc})")
-    FLASH_FWD_LAUNCHES += 1
+    FLASH_FWD_LAUNCHES += _launch("flash_attn_fwd", fn, err, [q, k, v], [o, lse])
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta):
+def _launch(name, fn, err, inputs, outputs) -> int:
+    """Launch a kernel over every chunk of (b, h) slices, its arguments the
+    chunks' pointers then (b*h, t, d, dtype, stream); returns the number of
+    launches."""
+    q = inputs[0]
     b, h, t, d = q.shape
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
-    return ptrs, (b * h, t, d, _KERNEL_DTYPES[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        chunks = _chunks(b * h)
+        for start, n in chunks:
+            ptrs = [_slices(x, start, n).data_ptr() for x in inputs + outputs]
+            rc = fn(*ptrs, n, t, d, _KERNEL_DTYPES[q.dtype], stream)
+            if rc != 0:
+                raise RuntimeError(f"{name} launch failed: "
+                                   f"{err(rc).decode()} (cudaError {rc})")
+    return len(chunks)
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
@@ -234,15 +294,9 @@ def launch_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     global FLASH_BWD_DQ_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
     fn, _, err = _bwd_kernels()
-    ptrs, shape = _bwd_args(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*ptrs, dq.data_ptr(), *shape, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dq launch failed: "
-                           f"{err(rc).decode()} (cudaError {rc})")
-    FLASH_BWD_DQ_LAUNCHES += 1
+    FLASH_BWD_DQ_LAUNCHES += _launch(
+        "flash_attn_bwd_dq", fn, err, [q, k, v, do, lse, delta], [dq])
     return dq
 
 
@@ -252,15 +306,9 @@ def launch_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]
     global FLASH_BWD_DKV_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
     _, fn, err = _bwd_kernels()
-    ptrs, shape = _bwd_args(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd_dkv launch failed: "
-                           f"{err(rc).decode()} (cudaError {rc})")
-    FLASH_BWD_DKV_LAUNCHES += 1
+    FLASH_BWD_DKV_LAUNCHES += _launch(
+        "flash_attn_bwd_dkv", fn, err, [q, k, v, do, lse, delta], [dk, dv])
     return dk, dv
 
 
@@ -272,35 +320,72 @@ def _kernel_bwd(q, k, v, o, lse, do):
     return (dq, *launch_bwd_dkv(q, k, v, do, lse, delta))
 
 
+def padded_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel at the kernels' head dim: q/k/v (B, H, T, D)
+    zero-padded along D to :func:`kernel_head_dim`, q scaled by
+    c = sqrt(d_pad / d), o sliced back to D. The scores, and so lse, are
+    the model's: (c q) k^T / sqrt(d_pad) = q k^T / sqrt(d)."""
+    d = q.shape[-1]
+    size = kernel_head_dim(d)
+    if size == d:
+        return _kernel_fwd(q, k, v)
+    c = math.sqrt(size / d)
+    o, lse = _kernel_fwd(_pad_head(q, size, c), _pad_head(k, size),
+                         _pad_head(v, size))
+    return o[..., :d].contiguous(), lse
+
+
+def padded_bwd(q, k, v, o, lse, do
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dq and dk/dv kernels at the kernels' head dim, padded as in
+    :func:`padded_fwd`, o and do too (so delta = rowsum(o * do) is
+    unchanged); dq, dk and dv are sliced back to D and dq is scaled by c,
+    the chain rule through q's scaling. dk needs no factor: the kernel
+    multiplies dS by the scaled q over sqrt(d_pad), which is q / sqrt(d)."""
+    d = q.shape[-1]
+    size = kernel_head_dim(d)
+    if size == d:
+        return _kernel_bwd(q, k, v, o, lse, do)
+    c = math.sqrt(size / d)
+    dq, dk, dv = _kernel_bwd(_pad_head(q, size, c), _pad_head(k, size),
+                             _pad_head(v, size), _pad_head(o, size), lse,
+                             _pad_head(do, size))
+    return ((dq[..., :d].float() * c).to(q.dtype), dk[..., :d].contiguous(),
+            dv[..., :d].contiguous())
+
+
 # --------------------------------------------------------------------------
 # public entry points
 # --------------------------------------------------------------------------
 
 
+def _device_of(q) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no causal attention for device {q.device}")
+    return q.device.type
+
+
 def flash_causal_attention_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     """q/k/v (B, H, T, D) -> (o (B, H, T, D), lse (B, H, T) fp32).
 
-    CUDA tensors go through the kernel, CPU tensors through the plain
-    version; any other device raises."""
-    if q.device.type == "cuda":
-        return _kernel_fwd(q, k, v)
-    if q.device.type == "cpu":
-        return plain_causal_attention_fwd(q, k, v)
-    raise ValueError(f"no causal attention for device {q.device}")
+    A CUDA tensor goes through the kernel, at :func:`kernel_head_dim` (the
+    wrapper raises on what the kernel cannot take); a CPU tensor through
+    the plain version; any other device raises."""
+    if _device_of(q) == "cuda":
+        return padded_fwd(q, k, v)
+    return plain_causal_attention_fwd(q, k, v)
 
 
 def flash_causal_attention_bwd(q, k, v, o, lse, do
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of causal attention, in q's type, from the
     forward's inputs, its output ``o`` and ``lse`` (B, H, T) fp32 and the
-    output's gradient ``do``. CUDA tensors go through the dq and dk/dv
-    kernels, CPU tensors through the plain version; any other device
-    raises."""
-    if q.device.type == "cuda":
-        return _kernel_bwd(q, k, v, o, lse, do)
-    if q.device.type == "cpu":
-        return plain_causal_attention_bwd(q, k, v, o, lse, do)
-    raise ValueError(f"no causal attention for device {q.device}")
+    output's gradient ``do``. Dispatched as :func:`flash_causal_attention_fwd`:
+    the dq and dk/dv kernels on a CUDA tensor, the plain version on a CPU
+    tensor; any other device raises."""
+    if _device_of(q) == "cuda":
+        return padded_bwd(q, k, v, o, lse, do)
+    return plain_causal_attention_bwd(q, k, v, o, lse, do)
 
 
 class FlashCausalAttention(torch.autograd.Function):
@@ -329,6 +414,27 @@ def flash_causal_attention(q, k, v) -> torch.Tensor:
 
 
 def causal_attention(q, k, v) -> torch.Tensor:
-    """Layout-adapting entry: q/k/v (B, T, H, D) -> (B, T, H, D)."""
+    """Layout-adapting entry: q/k/v (B, T, H, D) -> (B, T, H, D) through
+    :func:`flash_causal_attention`."""
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     return flash_causal_attention(qt, kt, vt).transpose(1, 2)
+
+
+def einsum_causal_attention(q, k, v) -> torch.Tensor:
+    """:func:`plain_causal_attention` in the (B, T, H, D) layout: the flax
+    models' einsum path when ``use_flash_attention`` is off (fp32 scores, a
+    causal mask of -1e30, the softmax cast to q's type), differentiable
+    through autograd. Each call on the card counts in
+    ``PLAIN_ATTENTION_CALLS``."""
+    global PLAIN_ATTENTION_CALLS
+    if _device_of(q) == "cuda":
+        PLAIN_ATTENTION_CALLS += 1
+    return plain_causal_attention(*(x.transpose(1, 2) for x in (q, k, v))
+                                  ).transpose(1, 2)
+
+
+def attention_for(cfg):
+    """A model's attention, (B, T, H, D) -> (B, T, H, D), by its config's
+    ``use_flash_attention``: :func:`causal_attention` (the kernels) on,
+    :func:`einsum_causal_attention` off."""
+    return causal_attention if cfg.use_flash_attention else einsum_causal_attention

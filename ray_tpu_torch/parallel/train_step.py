@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ray_tpu_torch._private import flight_recorder as _fr
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import gpt2, gpt2_moe, llama
 from ray_tpu_torch.train import _telemetry
@@ -104,9 +105,12 @@ class TrainStep:
         # batch: dict idx/targets (B, T); metrics: loss, grad_norm
 
     With ``telemetry`` on, each step call ends in a device synchronise so
-    that the recorder (``self.telemetry``) books the step's device time,
-    and the first call (the kernels' build, cuBLAS's warm-up) is booked as
-    the compile step."""
+    that the recorder (``self.telemetry``, made the process's current
+    recorder) books the step's device time, and the first call (the
+    kernels' build, cuBLAS's warm-up) is booked as the compile step; a
+    device-trace window armed on the recorder (``request_device_trace``)
+    opens and closes around step calls. With it off, each call still
+    leaves a ``train.step`` event in the flight recorder."""
 
     def __init__(
         self,
@@ -141,6 +145,7 @@ class TrainStep:
                 flops_per_token=(None if flops_per_step is not None else
                                  _telemetry.estimate_flops_per_token(model_cfg)),
                 device=self.device)
+            _telemetry.set_current_recorder(self.telemetry)
 
     # ----------------------------------------------------------------- state
 
@@ -219,12 +224,21 @@ class TrainStep:
     def step(self, state, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """One optimizer step. Updates ``state`` in place (where the JAX
         step donates it) and returns it with ``{"loss", "grad_norm"}``."""
+        rec = self.telemetry
+        if rec is None:
+            # telemetry off: one breadcrumb per call ("did step N start" is
+            # what a hung job gets asked)
+            _fr.record("train.step", b"", "dispatch" if self._warm else "trace+compile")
+            metrics = self._step(state, batch)
+            self._warm = True
+            return state, metrics
+        rec.device_trace.on_step_begin()
         t0 = time.perf_counter()
         compiled = not self._warm
         metrics = self._step(state, batch)
         self._warm = True
-        if self.telemetry is not None:
-            self._record(t0, batch, 1, compiled)
+        self._record(t0, batch, 1, compiled)
+        rec.device_trace.on_step_end(metrics)
         return state, metrics
 
     def multi_step(self, state, batches, num_steps: int):
@@ -234,6 +248,11 @@ class TrainStep:
         is already stacked iff it carries that extra leading axis)."""
         sample = next(iter(batches.values()))
         stacked = sample.ndim >= 3 and sample.shape[0] == num_steps
+        rec = self.telemetry
+        if rec is None:
+            _fr.record("train.step", b"", f"multi_step x{num_steps}")
+        else:
+            rec.device_trace.on_step_begin()
         t0 = time.perf_counter()
         compiled = not self._warm
         out = []
@@ -241,7 +260,9 @@ class TrainStep:
             batch = {k: v[i] for k, v in batches.items()} if stacked else batches
             out.append(self._step(state, batch))
         self._warm = True
-        if self.telemetry is not None:
+        metrics = {k: torch.stack([m[k] for m in out]) for k in out[0]}
+        if rec is not None:
             self._record(t0, batches, num_steps, compiled,
                          repeats=1 if stacked else num_steps)
-        return state, {k: torch.stack([m[k] for m in out]) for k in out[0]}
+            rec.device_trace.on_step_end(metrics)
+        return state, metrics

@@ -24,8 +24,12 @@ Quick start (tokens in, tokens out; weights are seeded random)::
     engine.run_until_drained()
     tokens, done, reason = engine.pull(rid)
 
-In this slice the engine is the entry point; ``LLMReplica``, ``deploy``,
-``stream`` and ``generate`` (the serve deployment) come later.
+Each engine publishes the ``ray_tpu_llm_*`` series under its ``name=``
+(read with ``ray_tpu_torch.util.metrics.drain_records``) and records
+``llm.*`` events in the flight recorder (``ray_tpu_torch._private.
+flight_recorder.dump``). In this slice the engine is the entry point;
+``LLMReplica``, ``deploy``, ``stream`` and ``generate`` (the serve
+deployment) come later.
 """
 
 from __future__ import annotations

@@ -29,10 +29,11 @@ arrive as tensors gathered on the device; logits and K/V leave on the
 device.
 
 Attention per path: a cold prefill (``start == 0``) is causal
-self-attention over the prompt and goes through
-``ops.attention.causal_attention``, the hand-written flash kernel on a CUDA
-tensor. A prefix-cache hit (``start > 0``), the batched decode and the
-verify chunk stay plain PyTorch tensor math (``_ctx_causal_attend``,
+self-attention over the prompt and goes through the model's own attention
+(``ops.attention.attention_for``): the hand-written flash kernel on a CUDA
+tensor, or the einsum path where the config turns ``use_flash_attention``
+off. A prefix-cache hit (``start > 0``), the batched decode and the verify
+chunk stay plain PyTorch tensor math (``_ctx_causal_attend``,
 ``_attend``, ``_chunk_attend``): the JAX package wrote no TPU kernel for
 any of them. Llama's K/V are cached per KV head, keys after rotation, and
 repeated to the query heads (``repeat_kv``) only to attend.
@@ -55,7 +56,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.llama import repeat_kv
-from ray_tpu_torch.ops.attention import NEG_INF, causal_attention
+from ray_tpu_torch.ops.attention import NEG_INF
 
 __all__ = ["ModelAdapter", "GPT2Adapter", "GPT2MoEAdapter", "LlamaAdapter",
            "FakeAdapter", "build_adapter", "MODEL_ZOO"]
@@ -184,6 +185,8 @@ class GPT2Adapter(ModelAdapter):
 
     def __init__(self, config, model):
         self.cfg = config
+        # a cold prefill's attention, [1, T, H, D], as the model computes it
+        self._cold_attention = model.h[0].attn.attention
         self.model = model
         self.device = model.wte.weight.device
         self.dtype = config.dtype   # compute type; the weights stay fp32
@@ -223,7 +226,7 @@ class GPT2Adapter(ModelAdapter):
 
         def attend(li, q, k, v):                                 # [T, H, D]
             if start == 0:   # cold prefill: the flash kernel on the card
-                return causal_attention(q[None], k[None], v[None])[0]
+                return self._cold_attention(q[None], k[None], v[None])[0]
             return _ctx_causal_attend(q, k_ctx[li], v_ctx[li], k, v)
 
         x, ks, vs = self._layers(x, attend)
@@ -294,6 +297,8 @@ class LlamaAdapter(ModelAdapter):
 
     def __init__(self, config, model):
         self.cfg = config
+        # a cold prefill's attention, [1, T, H, D], as the model computes it
+        self._cold_attention = model.h[0].attn.attention
         self.model = model
         self.device = model.tok_emb.weight.device
         self.dtype = config.dtype   # compute type; the weights stay fp32
@@ -331,7 +336,7 @@ class LlamaAdapter(ModelAdapter):
         def attend(li, q, k, v):                                 # [T, H, D]
             k, v = repeat_kv(k, rep), repeat_kv(v, rep)
             if start == 0:   # cold prefill: the flash kernel on the card
-                return causal_attention(q[None], k[None], v[None])[0]
+                return self._cold_attention(q[None], k[None], v[None])[0]
             return _ctx_causal_attend(q, repeat_kv(k_ctx[li], rep),
                                       repeat_kv(v_ctx[li], rep), k, v)
 

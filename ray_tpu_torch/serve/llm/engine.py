@@ -31,8 +31,28 @@ logits (taken on the device, one copy to the host per batch), and a
 temperature > 0 sequence samples on the host from its own seeded numpy
 generator, so a seed gives the same stream as in the JAX engine.
 
-Not ported yet: the metrics and flight-recorder events, and the
-``LLMReplica`` serve deployment; each comes with a later slice.
+Per-step telemetry goes through the port's ``util/metrics`` records with
+the JAX package's names, help strings and tags (``deployment``, from
+``name=`` or :meth:`LLMEngine.set_identity`, and ``replica``):
+
+  ray_tpu_llm_tokens_per_s        gauge, EMA of generated tokens/s
+  ray_tpu_llm_kv_utilization      gauge, 0-1 fraction of KV blocks in use
+  ray_tpu_llm_batch_size          gauge, sequences in the last step
+  ray_tpu_llm_preemptions_total   counter
+  ray_tpu_llm_prefix_hit_rate     gauge, cumulative fraction of looked-up
+                                  prompt tokens served from the prefix
+                                  cache (with the prefix cache on)
+  ray_tpu_llm_spec_acceptance     gauge, cumulative fraction of proposed
+                                  draft tokens the target accepted (with a
+                                  draft model)
+
+and the flight recorder gets ``llm.admit`` / ``llm.preempt`` /
+``llm.finish`` / ``llm.prefix_hit`` / ``llm.spec_verify`` events (cheap
+tuples, no formatting until dump). ``load()`` is the waiting + running
+count a serve autoscaler keys on.
+
+Not ported yet: the ``LLMReplica`` serve deployment (ROADMAP Queue A
+item 6).
 """
 
 from __future__ import annotations
@@ -46,6 +66,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import flight_recorder as _fr
 from ray_tpu_torch._private.config import CONFIG
 from ray_tpu_torch.serve.llm import scheduler as sched_mod
 from ray_tpu_torch.serve.llm.adapters import ModelAdapter
@@ -104,6 +125,40 @@ class _SeqSampling:
         self.spec = False
 
 
+_llm_metrics = None
+
+
+def _metrics():
+    global _llm_metrics
+    if _llm_metrics is None:
+        from ray_tpu_torch.util.metrics import Counter, Gauge
+
+        tags = ("deployment", "replica")
+        _llm_metrics = {
+            "tokens_per_s": Gauge(
+                "ray_tpu_llm_tokens_per_s",
+                "generated tokens/s per llm replica (EMA)", tag_keys=tags),
+            "kv_util": Gauge(
+                "ray_tpu_llm_kv_utilization",
+                "fraction of paged KV blocks in use", tag_keys=tags),
+            "batch": Gauge(
+                "ray_tpu_llm_batch_size",
+                "sequences in the last engine step", tag_keys=tags),
+            "preempt": Counter(
+                "ray_tpu_llm_preemptions_total",
+                "sequences requeued on KV exhaustion", tag_keys=tags),
+            "prefix_hit": Gauge(
+                "ray_tpu_llm_prefix_hit_rate",
+                "fraction of prompt tokens served from the prefix cache",
+                tag_keys=tags),
+            "spec_accept": Gauge(
+                "ray_tpu_llm_spec_acceptance",
+                "fraction of proposed draft tokens the target accepted",
+                tag_keys=tags),
+        }
+    return _llm_metrics
+
+
 class _OutBuffer:
     """Tokens produced but not yet pulled by the client."""
 
@@ -126,6 +181,7 @@ class LLMEngine:
         block_size: Optional[int] = None,
         max_batch: Optional[int] = None,
         max_waiting: Optional[int] = None,
+        name: str = "llm",
         prefix_cache: Optional[bool] = None,
         draft_adapter: Optional[ModelAdapter] = None,
         spec_k: Optional[int] = None,
@@ -174,12 +230,17 @@ class LLMEngine:
         # drained id gets its true terminal marker, not "unknown"
         self._done_reasons: "OrderedDict[str, str]" = OrderedDict()
         self._lock = threading.RLock()
+        self._tags = {"deployment": name, "replica": ""}
         self._tokens_per_s = 0.0  # EMA over steps
         self.steps_total = 0
         self.tokens_total = 0
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
         self.spec_rounds_total = 0
+
+    def set_identity(self, deployment: str, replica: str = ""):
+        """The tags of this engine's series (a serve replica sets them)."""
+        self._tags = {"deployment": deployment, "replica": replica}
 
     # ------------------------------------------------------------ submission
 
@@ -292,6 +353,8 @@ class LLMEngine:
             logits, k, v = self.adapter.prefill_ctx(
                 np.asarray(ctx[cached:], dtype=np.int64), cached,
                 k_ctx, v_ctx)
+            _fr.record("llm.prefix_hit", b"",
+                       f"{seq.seq_id} hit={cached}/{len(ctx)}")
         else:
             logits, k, v = self.adapter.prefill(
                 np.asarray(ctx, dtype=np.int64))
@@ -437,11 +500,14 @@ class LLMEngine:
         self.spec_rounds_total += 1
         self.spec_proposed_total += k_eff * len(seqs)
         self.spec_accepted_total += accepted_round
+        _fr.record("llm.spec_verify", b"",
+                   f"batch={len(seqs)} k={k_eff} accepted={accepted_round}")
         return sampled
 
     def step(self) -> Dict[str, Any]:
-        """One engine iteration; returns step stats. A no-op returning
-        ``{"batch_size": 0, "tokens": 0}`` when idle."""
+        """One engine iteration; returns step stats (also published as
+        series). A no-op returning ``{"batch_size": 0, "tokens": 0}`` when
+        idle."""
         with self._lock:
             t0 = time.perf_counter()
             plan = self.scheduler.schedule()
@@ -450,7 +516,11 @@ class LLMEngine:
                 self._free_draft(seq.seq_id)
             for seq in plan.preempted:
                 self._free_draft(seq.seq_id)
+                _fr.record("llm.preempt", b"",
+                           f"{seq.seq_id} ctx={seq.total_len}")
             if plan.batch_size == 0:
+                # as the JAX engine: an empty step publishes no preemption
+                self._publish(0, 0)
                 return {"batch_size": 0, "tokens": 0}
 
             sampled: Dict[str, Union[int, List[int]]] = {}
@@ -465,8 +535,14 @@ class LLMEngine:
                     self.cache.free(seq.seq_id)
                     self._free_draft(seq.seq_id)
                     self.scheduler.requeue(seq)
+                    _fr.record("llm.preempt", b"",
+                               f"{seq.seq_id} ctx={seq.total_len} admit")
                     continue
                 sampled[seq.seq_id] = self._sample([seq], logits[None])[0]
+                _fr.record("llm.admit", b"",
+                           f"{seq.seq_id} prompt={seq.total_len} "
+                           f"hit={seq.cached_len} "
+                           f"kv={self.cache.utilization():.2f}")
             plain = plan.decodes
             if plan.decodes and self.draft_cache is not None:
                 spec_seqs = [s for s in plan.decodes if s.sampling.spec]
@@ -503,6 +579,9 @@ class LLMEngine:
             for seq in finished:
                 self._finish_buffer(seq)
                 self._free_draft(seq.seq_id)
+                _fr.record("llm.finish", b"",
+                           f"{seq.seq_id} reason={seq.finish_reason} "
+                           f"tokens={len(seq.tokens)}")
 
             dt = max(time.perf_counter() - t0, 1e-9)
             self.steps_total += 1
@@ -510,6 +589,7 @@ class LLMEngine:
             inst = n_tokens / dt
             self._tokens_per_s = (inst if self._tokens_per_s == 0.0
                                   else 0.8 * self._tokens_per_s + 0.2 * inst)
+            self._publish(plan.batch_size, len(plan.preempted))
             return {
                 "batch_size": plan.batch_size,
                 "prefills": len(plan.prefills),
@@ -534,11 +614,32 @@ class LLMEngine:
             return 0.0
         return self.spec_accepted_total / self.spec_proposed_total
 
+    def _publish(self, batch: int, preempted: int):
+        try:
+            m = _metrics()
+            m["tokens_per_s"].set(self._tokens_per_s, tags=self._tags)
+            m["kv_util"].set(self.cache.utilization(), tags=self._tags)
+            m["batch"].set(batch, tags=self._tags)
+            if preempted:
+                m["preempt"].inc(preempted, tags=self._tags)
+            if self.prefix_cache_enabled:
+                m["prefix_hit"].set(self.cache.hit_rate(), tags=self._tags)
+            if self.draft_cache is not None:
+                m["spec_accept"].set(self.spec_acceptance(),
+                                     tags=self._tags)
+        except Exception:
+            pass  # telemetry must never fail an engine step
+
     # ------------------------------------------------------------------ misc
 
     def has_work(self) -> bool:
         with self._lock:
             return self.scheduler.has_work()
+
+    def load(self) -> int:
+        """Waiting + running sequences — what a serve autoscaler keys on."""
+        with self._lock:
+            return self.scheduler.queue_depth()
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

@@ -14,8 +14,10 @@ import ast
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,6 +123,122 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
         q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     with pytest.raises(exc):
         tattn._check_kernel_inputs(q, k, v)
+
+
+# ---------------------------------------------------------- head dims
+
+
+@pytest.mark.parametrize("d,size", [
+    (1, 32), (16, 32), (32, 32), (33, 64), (48, 64), (64, 64), (80, 128),
+    (96, 128), (128, 128), (129, None),
+])
+def test_kernel_head_dim_pads_to_the_next_kernel_size(d, size):
+    """The kernels are built for head dims 32, 64 and 128; every other head
+    dim up to 128 runs at the next of those, and above 128 nothing does."""
+    if size is None:
+        with pytest.raises(ValueError, match="up to 128"):
+            tattn.kernel_head_dim(d)
+    else:
+        assert tattn.kernel_head_dim(d) == size
+
+
+def _kernels_on_the_cpu(monkeypatch):
+    """Dispatch as on the card, with each kernel wrapper replaced by its
+    plain version on the CPU; returns the head dims the wrappers saw."""
+    seen = []
+    monkeypatch.setattr(tattn, "_device_of", lambda q: "cuda")
+    monkeypatch.setattr(tattn, "_kernel_fwd", lambda q, k, v: (
+        seen.append(("fwd", q.shape[-1])), tattn.plain_causal_attention_fwd(q, k, v))[1])
+    monkeypatch.setattr(tattn, "_kernel_bwd", lambda q, k, v, o, lse, do: (
+        seen.append(("bwd", q.shape[-1])),
+        tattn.plain_causal_attention_bwd(q, k, v, o, lse, do))[1])
+    return seen
+
+
+@pytest.mark.parametrize("d", [16, 48, 80])
+def test_padded_head_dims_take_the_kernels_with_jax_values(monkeypatch, d):
+    """On the card a head dim the kernels are not built for is zero-padded
+    to the next kernel size, q scaled by sqrt(d_pad / d) and dq by the same
+    factor: the forward and all three gradients equal the JAX function's,
+    with no plain call. Checked with the kernels' plain versions standing
+    in for the kernels, on the padded tensors the kernels would get."""
+    seen = _kernels_on_the_cpu(monkeypatch)
+    q, k, v = _qkv((2, 9, 3, d), seed=d)
+    w = np.random.default_rng(d + 1).standard_normal(q.shape).astype(np.float32)
+    plain_calls = tattn.PLAIN_ATTENTION_CALLS
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tattn.causal_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(w))
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    ref = np.asarray(jattn.causal_attention(jq, jk, jv))
+    jgrads = jax.grad(lambda *a: jnp.sum(jattn.causal_attention(*a) * w),
+                      argnums=(0, 1, 2))(jq, jk, jv)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=TOL, rtol=0)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, jgrads):
+        assert g.shape == q.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL, rtol=0,
+                                   err_msg=name)
+    size = tattn.kernel_head_dim(d)
+    assert seen == [("fwd", size), ("bwd", size)]
+    assert tattn.PLAIN_ATTENTION_CALLS == plain_calls
+
+
+@pytest.mark.parametrize("d,dtype,exc", [
+    (160, torch.float32, ValueError), (64, torch.float16, TypeError),
+    (48, torch.float64, TypeError),
+])
+def test_the_card_raises_on_what_the_kernels_cannot_take(monkeypatch, d, dtype, exc):
+    """No silent fallback: a head dim above 128 or a type other than fp32
+    or bf16 raises on the card before any launch."""
+    monkeypatch.setattr(tattn, "_device_of", lambda q: "cuda")
+    monkeypatch.setattr(tattn, "_kernel", lambda: pytest.fail("built a kernel"))
+    q = torch.zeros((1, 2, 8, d), dtype=dtype)
+    launches = tattn.FLASH_FWD_LAUNCHES
+    with pytest.raises(exc):
+        tattn.flash_causal_attention_fwd(q, q, q)
+    assert tattn.FLASH_FWD_LAUNCHES == launches
+
+
+@pytest.mark.parametrize("d", [16, 48])
+def test_the_einsum_path_equals_jax_and_counts_only_on_the_card(monkeypatch, d):
+    """``use_flash_attention`` off takes einsum_causal_attention, the
+    counterpart of xla_causal_attention; on the CPU, as every CPU call,
+    it counts neither as a launch nor as a plain call on the card."""
+    calls = []
+    plain = tattn.plain_causal_attention
+    monkeypatch.setattr(tattn, "plain_causal_attention",
+                        lambda *a: calls.append(a[0].shape) or plain(*a))
+    q, k, v = _qkv((2, 9, 3, d), seed=d)
+    counters = (tattn.FLASH_FWD_LAUNCHES, tattn.PLAIN_ATTENTION_CALLS)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tattn.einsum_causal_attention(*leaves)
+    out.sum().backward()
+    ref = np.asarray(jattn.causal_attention(*(jnp.asarray(x) for x in (q, k, v))))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=TOL, rtol=0)
+    assert calls == [(2, 3, 9, d)] and all(x.grad is not None for x in leaves)
+    assert (tattn.FLASH_FWD_LAUNCHES, tattn.PLAIN_ATTENTION_CALLS) == counters
+    assert tattn.attention_for(types.SimpleNamespace(use_flash_attention=False)) \
+        is tattn.einsum_causal_attention
+    assert tattn.attention_for(types.SimpleNamespace(use_flash_attention=True)) \
+        is tattn.causal_attention
+
+
+def test_large_batch_heads_are_launched_in_aligned_chunks():
+    """B * H above the grid's 65535 is launched in chunks of at most 65535
+    (b, h) slices; every chunk of fp32 lse rows starts 16-byte aligned."""
+    assert tattn._chunks(12) == [(0, 12)]
+    assert tattn._chunks(65544) == [(0, 65532), (65532, 12)]
+    assert tattn._chunks(3 * 65532) == [(i * 65532, 65532) for i in range(3)]
+    assert all(n <= 65535 for _, n in tattn._chunks(200_001))
+    for t in (1, 7, 16):
+        lse = torch.zeros((65544, 1, t))
+        part = tattn._slices(lse, 65532, 12)
+        assert part.shape == (12, t) and part.data_ptr() % 16 == 0
+        assert part.data_ptr() - lse.data_ptr() == 65532 * t * 4
+    q = torch.zeros((5462, 12, 1, 32))        # B * H = 65544 > 65535
+    tattn._check_kernel_inputs(q, q, q)       # the kernels take it, chunked
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

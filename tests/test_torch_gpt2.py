@@ -7,6 +7,12 @@ bf16 config both keep fp32 parameters and return bf16 logits; those agree
 to BF16_LOGIT_TOL, which is set by rounding order: each framework rounds
 its bf16 products, norms and gelu at other places, and on this model that
 alone gives up to about 0.04 at |logit| <= 4.2.
+
+Also the configs a JAX user passes: ``use_flash_attention`` off (the
+einsum path) and ``GPT2Config(n_head=16)``, whose head dim 48 the flash
+kernels compute padded to 64; a training step's gradients are held to
+flax's to TOL, with the kernels' plain versions standing in for the
+kernels on the padded tensors they would get on the card.
 """
 
 import jax
@@ -17,6 +23,8 @@ import torch
 
 from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu_torch.models import gpt2 as tgpt2
+from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.parallel.train_step import TrainStep
 
 TOL = 1e-4
 BF16_LOGIT_TOL = 0.05
@@ -132,3 +140,51 @@ def test_default_device_without_cuda_raises(monkeypatch, entry):
             build_adapter("gpt2-tiny")
         else:
             LLMEngine(build_adapter("fake"))
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_sixteen_heads_train_a_step_with_flax_gradients(monkeypatch, flash):
+    """GPT2Config(n_head=16) at width 768 (head dim 48), one layer: the
+    step's gradients equal flax's. With flash on, attention dispatches as on
+    the card, to the kernels at head dim 64 (their plain versions stand in
+    on the CPU); with it off, it takes the einsum path at head dim 48."""
+    calls = []
+    if flash:
+        monkeypatch.setattr(tattn, "_device_of", lambda q: "cuda")
+        monkeypatch.setattr(tattn, "_kernel_fwd", lambda q, k, v: (
+            calls.append(q.shape), tattn.plain_causal_attention_fwd(q, k, v))[1])
+        monkeypatch.setattr(tattn, "_kernel_bwd", lambda q, k, v, o, lse, do: (
+            calls.append(q.shape),
+            tattn.plain_causal_attention_bwd(q, k, v, o, lse, do))[1])
+    else:
+        plain = tattn.plain_causal_attention
+        monkeypatch.setattr(tattn, "plain_causal_attention",
+                            lambda *a: calls.append(a[0].shape) or plain(*a))
+    kw = dict(n_head=16, n_layer=1, vocab_size=96, block_size=32)
+    jcfg = jgpt2.GPT2Config(dtype=jnp.float32, use_flash_attention=flash, **kw)
+    tcfg = tgpt2.GPT2Config(dtype=torch.float32, use_flash_attention=flash, **kw)
+    assert tcfg.n_embd // tcfg.n_head == 48 and not tcfg.dropout
+    params = jax.tree.map(np.asarray, jax.jit(
+        lambda key: jgpt2.init_params(jcfg, key))(jax.random.PRNGKey(5)))
+    idx = np.random.default_rng(5).integers(0, 96, (2, 16))
+    targets = np.roll(idx, -1, axis=1)
+
+    def loss_of(p):
+        return jgpt2.loss_fn(jgpt2.forward(jcfg, p, jnp.asarray(idx)),
+                             jnp.asarray(targets))
+
+    ref = jax.tree.map(np.asarray, jax.jit(jax.grad(loss_of))(
+        jax.tree.map(jnp.asarray, params)))
+    ts = TrainStep(tcfg, device="cpu", telemetry=False)
+    state = ts.init()
+    tgpt2.load_flax_params(state["params"], params)
+    batch = ts.shard_batch({"idx": idx, "targets": targets})
+    loss, grads = ts.loss_and_grads(state, batch)
+    want = tgpt2._flax_tensors(state["params"], ref)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=TOL,
+                                   rtol=0, err_msg=name)
+    state, m = ts.step(state, batch)
+    assert np.isfinite(m["loss"].item()) and m["loss"].item() == loss.item()
+    # the forwards, their remat recomputes and the backwards
+    assert calls and all(c == (2, 16, 16, 64 if flash else 48) for c in calls)

@@ -13,10 +13,19 @@ Three levels, each on the same inputs through both packages:
     (batching, preemption, prefix caching and copy-on-write, backpressure,
     cancel, seeded sampling, interrupted admission, speculative decoding
     with partial, zero and EOS-cut acceptance): equal results and equal
-    acceptance, and the caches' integrity sweeps clean after each.
+    acceptance, and the caches' integrity sweeps clean after each;
+  - the engine's telemetry on one FakeAdapter scenario with preemption, a
+    prefix hit and a draft: the ``ray_tpu_llm_*`` series after every step
+    and the ``llm.*`` flight events (ids normalised) equal the JAX
+    engine's; ``name=``, ``set_identity`` and ``load()`` as the JAX
+    engine's;
+  - the config flags a JAX user passes (``use_flash_attention=False``)
+    build gpt2-tiny and gpt2-moe-tiny adapters that serve the JAX
+    engine's greedy streams.
 """
 
 import pickle
+import re
 import time
 from types import SimpleNamespace
 
@@ -24,9 +33,12 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu._private import flight_recorder as jfr
 from ray_tpu.serve.llm import adapters as jadapters
 from ray_tpu.serve.llm import engine as jengine
 from ray_tpu.serve.llm import kv_cache as jkv
+from ray_tpu.util import metrics as jmetrics
+from ray_tpu_torch._private import flight_recorder as tfr
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models import gpt2_moe as tgmoe
 from ray_tpu_torch.models import llama as tllama
@@ -34,6 +46,7 @@ from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.serve.llm import adapters as tadapters
 from ray_tpu_torch.serve.llm import engine as tengine
 from ray_tpu_torch.serve.llm import kv_cache as tkv
+from ray_tpu_torch.util import metrics as tmetrics
 
 TOL = 1e-4
 TINY = {"n_layer": 2, "n_embd": 64, "n_head": 4, "vocab_size": 96, "block_size": 64}
@@ -497,6 +510,136 @@ SCENARIOS = {f.__name__[len("scenario_"):]: f for f in (
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_fake_engine_scenario_equals_jax(name):
     assert SCENARIOS[name](PORT) == SCENARIOS[name](JAX)
+
+
+# -------------------------------------------------------- engine telemetry
+
+JAX.metrics, JAX.recorder = jmetrics, jfr
+PORT.metrics, PORT.recorder = tmetrics, tfr
+LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
+              "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
+              "ray_tpu_llm_prefix_hit_rate", "ray_tpu_llm_spec_acceptance")
+
+
+@pytest.fixture
+def clean_tables():
+    """Both metric tables drained for the test; their earlier deltas put
+    back afterwards."""
+    saved = [(m, m.drain_records()) for m in (jmetrics, tmetrics)]
+    yield
+    for m, records in saved:
+        m.drain_records()
+        m.restore_records(records)
+
+
+def _llm_series(E, deployment, replica=""):
+    """{series: value} of one engine's ray_tpu_llm_* records since the last
+    drain (counters as deltas, gauges as their last value)."""
+    return {r["name"]: r["value"] for r in E.metrics.drain_records()
+            if r["name"].startswith("ray_tpu_llm_")
+            and r["labels"] == {"deployment": deployment, "replica": replica}}
+
+
+def _last_seq(E):
+    snap = E.recorder.get_recorder().snapshot()
+    return snap[-1][0] if snap else 0
+
+
+def _llm_events(E, after):
+    """(event, detail) of the llm.* events recorded after seq ``after``,
+    request ids numbered by first appearance (each package counts its own)."""
+    ids = {}
+    norm = lambda m: "seq#%d" % ids.setdefault(m.group(0), len(ids))
+    return [(e["event"], re.sub(r"seq-\d+", norm, str(e["b"])))
+            for e in E.recorder.dump() if e["seq"] > after
+            and e["event"].startswith("llm.")]
+
+
+def telemetry_run(E):
+    """Preemption (a 14-block pool), a prefix hit (one prompt twice) and a
+    draft (k = 2), stepped one at a time: per step, the engine's series."""
+    eng = E.LLMEngine(E.fake(vocab_size=97),
+                      draft_adapter=E.fake(vocab_size=97, disagree_every=3),
+                      num_blocks=14, block_size=2, max_batch=4, prefix_cache=True,
+                      spec_k=2, name="parity")
+    prompt = [7, 8, 9, 10, 11, 12, 13, 14, 15]
+    sp = E.SamplingParams(max_tokens=12)
+    before = _last_seq(E)
+    rids = [eng.submit(prompt, sp)]
+    series = [(eng.step()["tokens"], _llm_series(E, "parity"))]
+    rids += [eng.submit(prompt, sp), eng.submit([3, 4, 5], sp)]
+    while eng.has_work():
+        series.append((eng.step()["tokens"], _llm_series(E, "parity")))
+    series.append((eng.step()["tokens"], _llm_series(E, "parity")))   # idle step
+    outs = [eng.pull(r) for r in rids]
+    counts = (eng.scheduler.preemptions_total, eng.cache.prefix_hit_tokens,
+              eng.spec_rounds_total)
+    return series, _llm_events(E, before), outs, counts
+
+
+def test_engine_series_and_events_equal_jax(clean_tables):
+    want_series, want_events, want_outs, want_counts = telemetry_run(JAX)
+    got_series, got_events, got_outs, got_counts = telemetry_run(PORT)
+    assert got_outs == want_outs and got_counts == want_counts
+    assert all(c > 0 for c in got_counts)          # preempted, hit, speculated
+    assert len(got_series) == len(want_series)
+    seen = set().union(*(s for _, s in got_series))
+    assert seen == set(LLM_SERIES)
+    produced = False
+    for (tokens, got), (_, want) in zip(got_series, want_series):
+        assert set(got) == set(want)
+        rate = got.pop("ray_tpu_llm_tokens_per_s")    # an EMA of wall-clock rates
+        want.pop("ray_tpu_llm_tokens_per_s")
+        produced = produced or tokens > 0
+        assert rate > 0 if produced else rate == 0.0
+        assert got == want
+    assert [e for e, _ in got_events] == [e for e, _ in want_events]
+    assert got_events == want_events
+    names = {e for e, _ in got_events}
+    assert names == {"llm.admit", "llm.preempt", "llm.finish", "llm.prefix_hit",
+                     "llm.spec_verify"}
+
+
+def identity_run(E):
+    eng = E.LLMEngine(E.fake(vocab_size=97), num_blocks=16, block_size=4,
+                      max_batch=1, name="first")
+    loads = [eng.load()]
+    rids = [eng.submit([1, 2], E.SamplingParams(max_tokens=3)) for _ in range(3)]
+    loads.append(eng.load())
+    eng.step()
+    first = sorted(_llm_series(E, "first"))
+    eng.set_identity("second", "r-1")
+    eng.step()
+    loads.append(eng.load())
+    eng.run_until_drained()
+    loads.append(eng.load())
+    return (first, sorted(_llm_series(E, "second", "r-1")), loads,
+            [eng.pull(r)[1] for r in rids])
+
+
+def test_engine_identity_and_load_equal_jax(clean_tables):
+    got, want = identity_run(PORT), identity_run(JAX)
+    assert got == want
+    assert got[0] and got[1] and got[2][::3] == [0, 0] and got[2][1] == 3
+    default = PORT.LLMEngine(PORT.fake(vocab_size=97))
+    assert default._tags == {"deployment": "llm", "replica": ""}
+
+
+@pytest.mark.parametrize("model,config", [
+    ("gpt2-tiny", TINY), ("gpt2-moe-tiny", SMALL)])
+def test_use_flash_attention_off_serves_the_jax_streams(model, config):
+    """The JAX package's serving tests build these adapters with
+    ``use_flash_attention`` off; the port takes the same config."""
+    cfg = {**config, "use_flash_attention": False}
+    jad = jadapters.build_adapter(model, cfg, seed=0)
+    tad = tadapters.build_adapter(model, cfg, seed=0, device="cpu")
+    assert tad.cfg.use_flash_attention is False and tad.cfg.dropout == 0.0
+    family = tgmoe if model == "gpt2-moe-tiny" else tgpt2
+    family.load_flax_params(tad.model, jad.p)       # the JAX weights across
+    before = tattn.FLASH_FWD_LAUNCHES
+    got, want = _drive(tengine, tad), _drive(jengine, jad)
+    assert got == want and got[1] > 0
+    assert tattn.FLASH_FWD_LAUNCHES == before
 
 
 # ------------------------------------------------------------- paged cache
