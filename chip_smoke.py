@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``ray_tpu_torch``) on one CUDA card and check
 every kernel of its main paths.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card, every phase below
+    python3 chip_smoke.py --ranks 4    # four cards: the mesh path only
 
 Needs one CUDA card (written for an H100) and ``nvcc``; imports nothing of
 JAX or of the JAX package. Phases, in order; any failure raises and the
@@ -77,11 +78,36 @@ script exits non-zero:
              version, all with no plain call; a (5462, 12, 16, 64) bf16
              forward and backward (B * H = 65544, over the grid's 65535)
              runs the kernels in two chunks, against the plain version
+ 12. mesh    TrainStep on a device mesh at world size 1 over NCCL
+             (make_mesh({"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}): FSDP2 over
+             the one rank, the tp and sp paths off): GPT-2-124M at full
+             width as in phase 7 (bf16, B = 16, T = 1024, a warm-up and five
+             timed steps, 24 / 12 / 12 launches and no plain call a step,
+             one more in a device-trace window), its step times beside
+             phase 7's median; then one fp32 step of
+             a 4-layer GPT-2-124M-width and of a 4-layer Llama-160M-width
+             model on the mesh against the same step off it (loss and
+             grad_norm within 1e-5 relative, parameters within 2 * lr)
 
 Then one JSON line of kernels (launches and plain attention calls per
-path: GPT-2 train and serve, Llama train and serve, spec, MoE train; every
-full-width path must show 0 plain calls) and, last, ``{"ok": true,
-"device": ...}``.
+path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
+train; every full-width path must show 0 plain calls) and, last,
+``{"ok": true, "device": ...}``.
+
+With ``--ranks N`` it needs N cards and runs, after the device and build
+phases, only the mesh path across them: N processes, one card each, over
+NCCL (``tcp://localhost``). An all-reduce of 256 MB over every card
+gives the interconnect's bus bandwidth. Each card trains GPT-2-124M alone
+(the one-device step, as in phase 7); then GPT-2-124M trains on each mesh
+of RANKS_TRAIN_MESHES (bf16, B = 16, T = 1024, global), launches checked
+per rank (2L / L / L at sp = 1; the ring's einsum replaces the kernels at
+sp > 1), step times beside the one-device median, and one more step of
+each in a device-trace window (kernel time, NCCL's kernels among them,
+and the device's busy share); then one fp32 step of
+the 4-layer GPT-2-124M-width and Llama-160M-width models on each mesh of
+RANKS_PARITY_MESHES against the one-device step on each card (loss and
+grad_norm within 1e-4 relative: the sums run in another order across
+ranks; parameters within 2 * lr).
 Without CUDA it exits 2 before printing any result.
 """
 
@@ -91,10 +117,13 @@ import copy
 import hashlib
 import json
 import re
+import socket
 import statistics
 import subprocess
 import sys
 import time
+import traceback
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -102,6 +131,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"   # the card; every phase runs on it
+LOG = True        # print; off on every rank but 0 with --ranks
 
 FP32_TOL = 2e-5   # kernel vs plain, both fp32 with TF32 off: summation order
 BF16_TOL = 2e-2   # bf16 kernel output vs the plain version in fp32 on the
@@ -165,6 +195,15 @@ MOE_TRAIN_STEPS = 3           # timed steps after one warm-up step
 # (head dim 16), served through a pool small enough to preempt; a 16-head
 # GPT-2-124M (head dim 48) step; the padded kernels alone at the shapes those
 # paths give them, in fp32 and bf16; and a B * H over the grid's 65535
+MESH_AXES = {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1}   # one rank, every axis named
+MESH_PARITY_LAYERS = 4
+MESH_REL_TOL = 1e-5           # mesh step vs the same step off the mesh, fp32
+RANKS_TRAIN_MESHES = ({"dp": 4}, {"fsdp": 4}, {"tp": 4}, {"sp": 4})
+RANKS_PARITY_MESHES = ({"fsdp": 4}, {"tp": 4}, {"sp": 4}, {"dp": 2, "tp": 2})
+RANKS_PARITY_BATCH = (4, 128)  # rows split over dp x fsdp, positions over sp
+RANKS_REL_TOL = 1e-4           # fp32, sums across ranks in another order
+RANKS_TRAIN_STEPS = 3
+RANKS_DEADLINE_S = 900
 TINY_SERVE = {"n_layer": 2, "n_embd": 64, "n_head": 4, "vocab_size": 96,
               "block_size": 64}
 TINY_POOL = {"num_blocks": 24, "block_size": 4}
@@ -177,7 +216,8 @@ LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    if LOG:
+        print(msg, flush=True)
 
 
 # ------------------------------------------------------------------ helpers
@@ -353,8 +393,11 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    card = out.stdout.strip().splitlines()[0]
-    log(f"[device] {card}")
+    cards = out.stdout.strip().splitlines()
+    for line in cards:
+        log(f"[device] {line}")
+    # one name for the run where every card reads alike (the one-card run)
+    card = cards[0] if len(set(cards)) == 1 else " / ".join(cards)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -751,8 +794,8 @@ def window_line(read) -> str:
 
 
 def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
-              profiled: bool):
-    """``TrainStep(cfg)`` on the card, bf16 compute over fp32 master weights:
+              profiled: bool, mesh=None):
+    """``TrainStep(cfg, mesh)`` on the card, bf16 compute over fp32 master weights:
     one warm-up step, then ``steps`` timed steps on a repeated batch with a
     falling loss and exactly 2L forward, L dq and L dk/dv launches and no
     plain attention call per step (forward + remat), then (if ``profiled``)
@@ -760,17 +803,21 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
     (``request_device_trace(1)``), read back from its Chrome trace for the
     largest kernels and the device's busy share; the recorder's slow-step
     flag and its train.step events. Returns the run's numbers."""
+    from ray_tpu_torch.models import _flax
+    from ray_tpu_torch.parallel.mesh import axis_size
     from ray_tpu_torch.parallel.train_step import TrainStep
     from ray_tpu_torch.train import _telemetry
 
-    ts = TrainStep(cfg, device=DEVICE)
+    ts = TrainStep(cfg, mesh, device=DEVICE)
     if _telemetry.current_recorder() is not ts.telemetry:
         raise AssertionError("TrainStep did not make its recorder current")
     mark = flight_mark()
     state = ts.init(torch.Generator().manual_seed(0))
     if any(p.dtype != torch.float32 for p in state["params"].parameters()):
         raise AssertionError("master weights are not fp32")
-    n_params = sum(p.numel() for p in state["params"].parameters())
+    model = state["params"]   # whole parameters, where a mesh rank holds a tp shard
+    n_params = sum(int(np.prod(_flax.full_shape(model, n, p)))
+                   for n, p in model.named_parameters())
     # an MoE token runs top_k of num_experts experts: the active count keeps
     # that share of the expert stacks (wi, wo)
     experts = sum(p.numel() for n, p in state["params"].named_parameters()
@@ -798,8 +845,9 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
     summary = ts.telemetry.summary()
     tokens_per_s = summary["tokens_per_s"]
     # the exact 6N count (every parameter, the untied head included) beside
-    # the recorder's estimate 12 L d^2 + V d
-    exact_mfu = 6 * n_active * tokens_per_s / PEAK_FLOPS[torch.bfloat16]
+    # the recorder's estimate 12 L d^2 + V d, over every card of the mesh
+    cards = 1 if mesh is None else mesh.size()
+    exact_mfu = 6 * n_active * tokens_per_s / (PEAK_FLOPS[torch.bfloat16] * cards)
     log(f"[{tag}] {name} {dtype_name(cfg.dtype)} compute / fp32 params, batch {batch_shape}: "
         f"warm-up {warm_s:.2f} s, then steps {[round(x, 2) for x in step_ms]} ms "
         f"on {card}")
@@ -812,8 +860,10 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
     log(f"[{tag}] {n_params} parameters, {n_active} active per token; MFU "
         f"{summary.get('mfu')} by the recorder's 12 L d^2 + V d count, "
         f"{exact_mfu:.6f} by the exact 6N count of active parameters "
-        f"({6 * n_active:.4g} FLOP per token) over 989 TFLOP/s")
-    want = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer, 0)
+        f"({6 * n_active:.4g} FLOP per token) over 989 TFLOP/s x {cards}")
+    # ring attention over sp (an einsum, as in JAX) replaces the kernels
+    ring = mesh is not None and axis_size(mesh, "sp") > 1
+    want = (0, 0, 0, 0) if ring else (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer, 0)
     if any(c != want for c in counts):
         raise AssertionError(f"launches and plain calls per step {counts}, "
                              f"expected {want}")
@@ -842,7 +892,7 @@ def train_run(card: str, tag: str, name: str, cfg, batch_shape, steps: int,
             f"on {card}")
         for name, us in top:
             log(f"[{tag}]   {us / 1e3:9.3f} ms  {name[:110]}")
-        if not kernel_us or attn_ms <= 0:
+        if not kernel_us or (attn_ms <= 0) != ring:
             raise AssertionError(f"the trace window holds no attention kernel: {read}")
         out.update(profiled_step_ms=prof_ms, attention_ms_profiled=attn_ms,
                    kernel_ms_profiled=busy_ms,
@@ -1281,6 +1331,181 @@ def phase_head_dims(card: str):
         "fp32_parity": parity}, "padded": padded, "big_bh": big}
 
 
+def mesh_parity(card: str, name: str, cfg, mesh, batch_shape=PARITY_BATCH,
+                rel_tol: float = MESH_REL_TOL):
+    """One fp32 step of ``cfg`` on ``mesh`` and off it, on the card, from the
+    same weights and batch: loss and grad_norm to ``rel_tol`` relative,
+    every parameter (gathered from the mesh) to 2 * lr."""
+    from ray_tpu_torch.models import _flax
+    from ray_tpu_torch.parallel.train_step import TrainStep
+
+    plain = TrainStep(cfg, device=DEVICE, telemetry=False)
+    meshed = TrainStep(cfg, mesh, device=DEVICE, telemetry=False)
+    a = plain.init(torch.Generator().manual_seed(2))
+    b = meshed.init(torch.Generator().manual_seed(2))
+    idx = np.random.default_rng(2).integers(0, cfg.vocab_size, batch_shape)
+    raw = {"idx": idx, "targets": np.roll(idx, -1, axis=1)}
+    a, ma = plain.step(a, plain.shard_batch(raw))
+    b, mb = meshed.step(b, meshed.shard_batch(raw))
+    rel = lambda x, y: abs(x.item() - y.item()) / abs(y.item())
+    model = b["params"]
+    out = {"loss_rel_err": rel(mb["loss"], ma["loss"]),
+           "grad_norm_rel_err": rel(mb["grad_norm"], ma["grad_norm"]),
+           "param_abs_err": max(
+               (_flax.gather_full(model, n, q, meshed.tp) - p.detach().cpu()).abs().max().item()
+               for (n, q), p in zip(model.named_parameters(), a["params"].parameters())),
+           "loss": mb["loss"].item(), "grad_norm": mb["grad_norm"].item()}
+    log(f"[mesh] fp32 step {batch_shape}, {name} ({cfg.n_layer} layers), on the mesh "
+        f"vs off it on {card}: {json.dumps(out)}")
+    if (max(out["loss_rel_err"], out["grad_norm_rel_err"]) > rel_tol
+            or out["param_abs_err"] > 2 * plain.learning_rate):
+        raise AssertionError(f"the mesh step differs from the one-device step: {out}")
+    del plain, meshed, a, b, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(card: str, train):
+    """``TrainStep`` on a world-size-1 mesh over NCCL: GPT-2-124M training
+    as in phase 7, its step times beside phase 7's median, and the fp32
+    mesh step against the one-device step for GPT-2 and Llama widths."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MESH_AXES, device=DEVICE)
+    backend, world = dist.get_backend(), dist.get_world_size()
+    run = train_run(card, "mesh", "gpt2-124m", GPT2Config.gpt2_124m(), TRAIN_BATCH,
+                    TRAIN_STEPS, profiled=True, mesh=mesh)
+    log(f"[mesh] {backend}, world size {world}, mesh {MESH_AXES}: steps "
+        f"{[round(x, 2) for x in run['step_ms']]} ms, median "
+        f"{run['median_step_ms']:.2f} ms beside the one-device train phase's median "
+        f"{train['median_step_ms']:.2f} ms (x{run['median_step_ms'] / train['median_step_ms']:.4f}) "
+        f"on {card}")
+    run["backend"], run["world_size"] = backend, world
+    run["one_device_median_step_ms"] = train["median_step_ms"]
+    fp32 = dict(n_layer=MESH_PARITY_LAYERS, dtype=torch.float32)
+    run["parity"] = {
+        "gpt2-124m": mesh_parity(card, "gpt2-124m", GPT2Config.gpt2_124m(**fp32), mesh),
+        "llama-160m": mesh_parity(card, "llama-160m", LlamaConfig.llama_160m(**fp32), mesh)}
+    dist.destroy_process_group()
+    return run
+
+
+def phase_ranks(card: str, world: int):
+    """This rank's part of ``--ranks``: the one-device GPT-2-124M step on
+    its card, then GPT-2-124M on each mesh of RANKS_TRAIN_MESHES, then the
+    fp32 mesh steps against the one-device step (RANKS_PARITY_MESHES)."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    keep = ("step_ms", "median_step_ms", "median_tokens_per_s", "losses", "grad_norms",
+            "launches", "plain_calls", "launches_per_step", "summary", "exact_mfu",
+            "kernel_ms_profiled", "device_busy_share", "idle_gap_ms")
+    # the interconnect: an all-reduce of 256 MB of fp32 over every rank
+    x = torch.ones(64 << 20, device=DEVICE)
+    ms = cuda_ms(lambda: torch.distributed.all_reduce(x), iters=5, warmup=2)
+    bus = 2 * (world - 1) / world * x.numel() * 4 / (ms / 1e3) / 1e9
+    log(f"[ranks] all_reduce of 256 MB fp32 over {world} cards: {ms:.3f} ms, "
+        f"{bus:.1f} GB/s bus bandwidth (2 (n - 1) / n x bytes / time) on {card}")
+    del x
+    single = train_run(card, "ranks", "gpt2-124m, one device", GPT2Config.gpt2_124m(),
+                       TRAIN_BATCH, RANKS_TRAIN_STEPS, profiled=True)
+    out = {"world_size": world, "all_reduce_256mb_ms": ms, "all_reduce_bus_gb_s": bus,
+           "one_device": {k: single[k] for k in keep}, "meshes": {}, "parity": {}}
+    for axes in RANKS_TRAIN_MESHES:
+        run = train_run(card, "ranks", f"gpt2-124m on {axes}", GPT2Config.gpt2_124m(),
+                        TRAIN_BATCH, RANKS_TRAIN_STEPS, profiled=True,
+                        mesh=make_mesh(axes, device=DEVICE))
+        log(f"[ranks] {axes} over {world} cards: median step "
+            f"{run['median_step_ms']:.2f} ms, {run['median_tokens_per_s']:.0f} tokens/s "
+            f"(global batch {TRAIN_BATCH}) beside one card's {single['median_step_ms']:.2f}"
+            f" ms, {single['median_tokens_per_s']:.0f} tokens/s, on {card} each")
+        out["meshes"][json.dumps(axes)] = {k: run[k] for k in keep}
+    fp32 = dict(n_layer=MESH_PARITY_LAYERS, dtype=torch.float32)
+    for axes in RANKS_PARITY_MESHES:
+        mesh = make_mesh(axes, device=DEVICE)
+        for name, cfg in (("gpt2-124m", GPT2Config.gpt2_124m(**fp32)),
+                          ("llama-160m", LlamaConfig.llama_160m(**fp32))):
+            out["parity"][f"{name} {json.dumps(axes)}"] = mesh_parity(
+                card, f"{name} on {axes}", cfg, mesh, RANKS_PARITY_BATCH, RANKS_REL_TOL)
+    return out
+
+
+def _rank_main(rank: int, world: int, port: int, card: str, device: str, results):
+    """One process of ``--ranks``: its card, NCCL over ``tcp://localhost``."""
+    import torch.distributed as dist
+
+    global DEVICE, LOG
+    DEVICE, LOG = device, rank == 0
+    try:
+        sys.path.insert(0, str(ROOT))
+        from ray_tpu_torch._private.device import set_fp32_policy
+
+        if device == "cuda":
+            torch.cuda.set_device(rank)
+            set_fp32_policy()
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world, timeout=timedelta(seconds=300))
+        results.put((rank, "ok", phase_ranks(card, world)))
+        dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def main_ranks(world: int) -> int:
+    """``--ranks N``: the mesh path over N cards, one process each."""
+    import multiprocessing as mp
+    import queue
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke.py --ranks {world} needs {world} CUDA cards", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import ray_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    card = phase_device()
+    phase_build()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, card, DEVICE, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + RANKS_DEADLINE_S
+    try:
+        while len(got) < world:
+            try:
+                rank, status, value = results.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise AssertionError(f"ranks {sorted(set(range(world)) - set(got))} gave "
+                                     f"nothing within {RANKS_DEADLINE_S} s") from None
+            if status == "error":
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            got[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:   # a failed or hung rank's peers wait in collectives
+            if p.is_alive():
+                p.kill()
+            p.join()
+    log(f"[ranks] {json.dumps(got[0])}")
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
@@ -1302,6 +1527,7 @@ def main() -> int:
     spec = phase_spec(card, llama["prompts"], llama["outputs"], llama.pop("cpu_model"))
     moe = phase_moe(card)
     head_dims = phase_head_dims(card)
+    mesh = phase_mesh(card, train)
 
     fwd_head = next(c for c in fwd_cases if "ms" in c and c["shape"] == list(HEADLINE[0])
                     and c["dtype"] == dtype_name(HEADLINE[1]))
@@ -1313,7 +1539,8 @@ def main() -> int:
     plain_calls = {"train": train["plain_calls"], "serve": serve["plain_calls"],
                    "llama_train": llama["train"]["plain_calls"],
                    "llama_serve": llama["serve_plain_calls"],
-                   "spec": spec["plain_calls"], "moe_train": moe["plain_calls"]}
+                   "spec": spec["plain_calls"], "moe_train": moe["plain_calls"],
+                   "mesh": mesh["plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -1327,7 +1554,8 @@ def main() -> int:
                              "llama_train": llama["train"]["launches"][0],
                              "llama_serve": llama["serve_launches"],
                              "spec": spec["launches"],
-                             "moe_train": moe["launches"][0]},
+                             "moe_train": moe["launches"][0],
+                             "mesh": mesh["launches"][0]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -1357,7 +1585,8 @@ def main() -> int:
             "launches_by_path": {path: run["launches"][1 if kernel == "dq" else 2]
                                  for path, run in (("train", train),
                                                    ("llama_train", llama["train"]),
-                                                   ("moe_train", moe))},
+                                                   ("moe_train", moe),
+                                                   ("mesh", mesh))},
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
             "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
                                              if c["dtype"] == dt for o in outputs)
@@ -1368,7 +1597,7 @@ def main() -> int:
             "bound_by": bwd_head[kernel]["bound_by"],
             "library_ms": bwd_head["library_ms"],
             "plain_calls_by_path": {path: plain_calls[path] for path in
-                                    ("train", "llama_train", "moe_train")},
+                                    ("train", "llama_train", "moe_train", "mesh")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -1388,6 +1617,7 @@ def main() -> int:
     log(f"[moe] {json.dumps(moe)}")
     log(f"[serve] {json.dumps(serve)}")
     log(f"[head_dims] {json.dumps(head_dims)}")
+    log(f"[mesh] {json.dumps(mesh)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1397,4 +1627,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ranks":
+        sys.exit(main_ranks(int(sys.argv[2])))
     sys.exit(main())

@@ -10,7 +10,7 @@ with its plain PyTorch version beside it.
 
 What is ported so far (the serving and training slices, every model
 family of the JAX zoo, speculative decoding, the metrics and the flight
-recorder):
+recorder, the training step on a mesh of dp, fsdp, tp and sp):
 
   ops/attention.py       causal attention, differentiable; where the kernels
                          take the head dim (32, 64, 128) and type, on a CUDA
@@ -23,15 +23,23 @@ recorder):
                          einsum path, counted on the card
   ops/moe.py             MoE FFN: static-capacity top-k routing, the
                          Switch load-balance loss, dispatch/combine einsums
+  ops/ring_attention.py  causal attention over the sp ranks: k/v round a
+                         ring of ppermutes, a log-space streaming merge
   models/gpt2.py         GPT-2 as an ``nn.Module`` (fp32 parameters, compute
   models/llama.py        in ``config.dtype``, per-block checkpointing);
   models/gpt2_moe.py     Llama (RMSNorm, RoPE, GQA, SwiGLU, fp32 head);
                          GPT-2-MoE; each with flax weight and train-state
                          loaders (``models/_flax.py``)
-  parallel/train_step.py TrainStep at dp = 1 for GPT2Config, LlamaConfig and
-                         GPT2MoEConfig: AdamW with optax's clip and
-                         weight-decay mask, the MoE aux loss, step /
-                         multi_step
+  parallel/train_step.py TrainStep for GPT2Config, LlamaConfig and
+                         GPT2MoEConfig on one device, and for GPT-2 and
+                         Llama on a mesh (FSDP2 over dp/fsdp/sp, Megatron
+                         tp, ring attention over sp): AdamW with optax's
+                         clip and weight-decay mask, the MoE aux loss,
+                         step / multi_step
+  parallel/mesh.py       make_mesh (a DeviceMesh), the port's PartitionSpec,
+                         ShardingRules, batch_sharding
+  parallel/_collectives.py  ppermute and Megatron's copy / reduce pair, with
+                         their gradients
   train/_telemetry.py    StepRecorder: goodput, tokens/s, MFU, HBM, the
                          ray_tpu_train_* series, slow-step and compile-storm
                          flags, a torch.profiler device-trace window

@@ -7,6 +7,13 @@ Module names follow the flax tree: ``h_{i}/attn/c_attn/kernel`` is
 transposed into ``nn.Linear.weight``; ``scale``, ``embedding`` and the
 RMSNorm ``weight`` map by name; a raw array parameter (the MoE experts'
 ``wi``/``wo``) keeps its name and layout.
+
+On a mesh each rank's module holds its tp shard of a parameter
+(:func:`tp_layout`: the rows of one dimension it holds, which for GPT-2's
+fused ``c_attn`` are this rank's heads of each of q, k and v, not one
+block), and FSDP2 holds its fsdp shard of that as a DTensor. Loading
+slices the whole tensor both ways on each rank, with no communication;
+:func:`full_state` gathers it back.
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -73,13 +82,94 @@ def _torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
+def _holder(model: nn.Module, name: str):
+    """(the module holding parameter ``name``, its path, the leaf name)."""
+    module_name, _, leaf = name.rpartition(".")
+    return model.get_submodule(module_name), module_name, leaf
+
+
+def flax_path(model: nn.Module, name: str) -> str:
+    """The flax path of parameter ``name`` (the inverse of ``_torch_name``):
+    ``h.3.attn.c_attn.weight`` is ``h_3/attn/c_attn/kernel``."""
+    module, module_name, leaf = _holder(model, name)
+    if leaf == "weight":
+        for cls, flax_leaf in ((nn.Embedding, "embedding"), (nn.Linear, "kernel"),
+                               (nn.LayerNorm, "scale")):
+            if isinstance(module, cls):
+                leaf = flax_leaf
+    parts = module_name.split(".") if module_name else []
+    if parts and parts[0] == "h":
+        parts = [f"h_{parts[1]}"] + parts[2:]
+    return "/".join(parts + [leaf])
+
+
+def tp_layout(model: nn.Module, name: str):
+    """The ``TPLayout`` of parameter ``name``, from the layer that holds it;
+    None where every tp rank holds it whole (norms, ``wpe``, the bias of a
+    row-parallel layer, every parameter without tp)."""
+    module, _, leaf = _holder(model, name)
+    layout = getattr(module, "tp_layout", None)
+    if layout is None or (leaf == "bias" and layout.dim != 0):
+        return None
+    return layout
+
+
+def full_shape(model: nn.Module, name: str, p: torch.Tensor):
+    """The whole shape of parameter ``name`` of which ``p`` is a tp shard."""
+    shape = list(p.shape)
+    layout = tp_layout(model, name)
+    if layout is not None:
+        shape[layout.dim] = layout.full
+    return tuple(shape)
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of an FSDP2 DTensor; any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def shard_like(model: nn.Module, name: str, full: torch.Tensor,
+               like: torch.Tensor) -> torch.Tensor:
+    """The whole tensor ``full`` of parameter ``name`` held as ``like`` (the
+    parameter or a moment of it) is held on this rank: its tp rows, on
+    ``like``'s device, and for an FSDP2 DTensor its fsdp shard (a DTensor
+    with ``like``'s placement). No communication."""
+    layout = tp_layout(model, name)
+    if layout is not None:
+        full = full.index_select(layout.dim, layout.index)
+    full = full.to(like.device)
+    if isinstance(like, DTensor):
+        return distribute_tensor(full, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+    return full
+
+
+def gather_full(model: nn.Module, name: str, t: torch.Tensor, tp) -> torch.Tensor:
+    """The whole fp32 tensor of parameter ``name`` from every rank's shard
+    ``t`` (the parameter or a moment of it), on every rank, on the CPU:
+    FSDP2's all-gather over fsdp, then a sum over tp of each owner's rows
+    written into zeros. A collective: every rank calls it."""
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    t = t.detach().float()
+    layout = tp_layout(model, name)
+    if layout is None:
+        return t.cpu()
+    shape = list(t.shape)
+    shape[layout.dim] = layout.full
+    full = t.new_zeros(shape)
+    if layout.owner:
+        full.index_copy_(layout.dim, layout.index.to(t.device), t)
+    dist.all_reduce(full, group=tp.group)
+    return full.cpu()
+
+
 def flax_tensors(model: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The flax tree ``tree`` (nested dicts of arrays, laid out like the
     parameters) as fp32 CPU tensors keyed by ``model``'s parameter names,
-    dense kernels transposed. Unknown or missing keys, and shapes that do
-    not match, raise ``ValueError``."""
+    dense kernels transposed; on a mesh, the whole tensors. Unknown or
+    missing keys, and shapes that do not match, raise ``ValueError``."""
     flat = _flatten(tree)
-    targets = dict(model.named_parameters())
+    targets = {name: full_shape(model, name, p) for name, p in model.named_parameters()}
     by_name = {_torch_name(path): path for path in flat}
     unknown = sorted(by_name[n] for n in set(by_name) - set(targets))
     missing = sorted(set(targets) - set(by_name))
@@ -91,22 +181,28 @@ def flax_tensors(model: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tens
         arr = np.asarray(flat[path], dtype=np.float32)
         if path.endswith("kernel"):
             arr = arr.T
-        if tuple(arr.shape) != tuple(targets[name].shape):
+        if tuple(arr.shape) != targets[name]:
             raise ValueError(f"{path}: shape {arr.shape} does not fit "
-                             f"{name} {tuple(targets[name].shape)}")
+                             f"{name} {targets[name]}")
         out[name] = torch.tensor(arr)
     return out
 
 
-def load_flax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    """Fill ``model`` from the JAX package's parameter tree, given as nested
-    dicts of numpy arrays. Unknown or missing keys, and shapes that do not
-    match, raise ``ValueError``."""
-    values = flax_tensors(model, params)
+def load_full(model: nn.Module, values: Dict[str, torch.Tensor]) -> nn.Module:
+    """Fill ``model`` from whole fp32 tensors keyed by parameter name, each
+    rank of a mesh model taking its own shard."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            p.copy_(values[name])
+            local_tensor(p).copy_(local_tensor(shard_like(model, name, values[name], p)))
     return model
+
+
+def load_flax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
+    """Fill ``model`` from the JAX package's parameter tree, given as nested
+    dicts of numpy arrays; a mesh model (a ``TrainStep``'s ``new_model()``)
+    takes this rank's shard of each. Unknown or missing keys, and shapes
+    that do not match, raise ``ValueError``."""
+    return load_full(model, flax_tensors(model, params))
 
 
 def _adam_state(opt_state):
@@ -128,14 +224,33 @@ def load_flax_state(ts, state: Dict[str, Any]) -> Dict[str, Any]:
     ``jax.tree.map(np.asarray, state)``) as the state of the port's
     :class:`~ray_tpu_torch.parallel.train_step.TrainStep` ``ts``, on its
     device, for whichever family ``ts`` trains. Training continues from it
-    where the JAX run stopped."""
+    where the JAX run stopped. On a mesh ``TrainStep`` each rank keeps its
+    own shard of every parameter and of ``mu`` and ``nu``."""
     model = load_flax_params(ts.new_model(), state["params"])
     adam = _adam_state(state["opt_state"])
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optax state")
-    moments = {key: {name: t.to(ts.device) for name, t in
+    params = dict(model.named_parameters())
+    moments = {key: {name: shard_like(model, name, t, params[name]) for name, t in
                      flax_tensors(model, getattr(adam, key)).items()}
                for key in ("mu", "nu")}
     return {"params": model,
             "opt_state": {"count": int(np.asarray(adam.count)), **moments},
             "step": int(np.asarray(state["step"]))}
+
+
+def full_state(ts, state: Dict[str, Any]) -> Dict[str, Any]:
+    """A mesh ``TrainStep`` state gathered whole, as the JAX state's global
+    arrays are: ``{"params", "mu", "nu"}`` each ``{flax path: fp32 CPU
+    tensor}`` in flax's layout (kernels (in, out)), with ``count`` and
+    ``step``. A collective: every rank calls it, and every rank gets it."""
+    model = state["params"]
+    opt = state["opt_state"]
+    out = {"params": {}, "mu": {}, "nu": {},
+           "count": opt["count"], "step": state["step"]}
+    for name, p in model.named_parameters():
+        path = flax_path(model, name)
+        for key, t in (("params", p), ("mu", opt["mu"][name]), ("nu", opt["nu"][name])):
+            full = gather_full(model, name, t, ts.tp)
+            out[key][path] = full.T if path.endswith("kernel") else full
+    return out

@@ -27,13 +27,25 @@ Each block is checkpointed while grad is enabled (``config.remat``), the
 counterpart of ``nn.remat(Block)``: its activations are recomputed in the
 backward pass, so the attention forward kernel runs twice per block per
 training step. Serving under ``torch.inference_mode`` never checkpoints.
+
+On a mesh (``parallel/train_step.py``) the module is built with a
+:class:`~ray_tpu_torch.parallel._collectives.TPGroup` and holds this tp
+rank's shard, Megatron's layout of ``GPT2_SHARDING_PATTERNS``:
+column-parallel ``c_attn`` (this rank's heads of q, of k and of v) and
+``c_fc``, row-parallel ``c_proj`` (partial sums all-reduced before the
+replicated bias), a vocab-parallel ``wte`` whose tied head gives this
+rank's slice of the logits (:func:`vocab_parallel_loss` takes them), and
+LayerNorms and ``wpe`` replicated. ``config.attn_fn`` replaces the
+attention (ring attention over sp), and ``pos_offset`` shifts the
+positions to the rank's place in the sequence. Without a group it is the
+one-device module, operation for operation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +57,14 @@ from ray_tpu_torch.models import _flax
 from ray_tpu_torch.models._flax import flax_init_
 from ray_tpu_torch.models._flax import flax_tensors as _flax_tensors  # noqa: F401
 from ray_tpu_torch.ops.attention import attention_for
+from ray_tpu_torch.parallel._collectives import (
+    TPGroup,
+    copy_to_tp,
+    reduce_from_tp,
+    split_range,
+    tp_layout,
+)
+from ray_tpu_torch.parallel.mesh import P, ShardingRules
 
 LAYERNORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -60,6 +80,10 @@ class GPT2Config:
     dtype: torch.dtype = torch.bfloat16   # compute type; params stay fp32
     use_flash_attention: bool = True       # else the einsum path
     remat: bool = True                     # checkpoint each block under grad
+    # Override the attention primitive, e.g. ring attention bound to the sp
+    # ranks (parallel/train_step.py). Signature (q, k, v) -> out, all
+    # (B, T, H, D).
+    attn_fn: Any = None
 
     @classmethod
     def gpt2_124m(cls, **kw):
@@ -74,17 +98,35 @@ class GPT2Config:
 
 class Dense(nn.Linear):
     """``nn.Linear`` with fp32 parameters that computes in ``dtype``
-    (flax ``Dense``: input, kernel and bias promoted to ``dtype``)."""
+    (flax ``Dense``: input, kernel and bias promoted to ``dtype``).
+
+    With ``tp``, this rank's shard (``self.tp_layout``): ``tp_dim=0``
+    column-parallel (the output rows ``tp_index``, default a contiguous
+    part, and their bias), ``tp_dim=1`` row-parallel (the input columns
+    ``tp_index``; the partial products are summed over tp, then the whole
+    bias is added). The input of a column-parallel layer must come through
+    ``copy_to_tp``. ``tp_copies`` is how many tp ranks hold the same rows
+    (GQA's KV heads where tp exceeds their count), whose gradients the
+    step sums."""
 
     def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device=None,
-                 bias: bool = True):
+                 bias: bool = True, *, tp: Optional[TPGroup] = None,
+                 tp_dim: int = 0, tp_index=None, tp_copies: int = 1):
+        self.tp_layout = tp_layout(tp, tp_dim, (n_out, n_in)[tp_dim], tp_index, tp_copies)
+        if self.tp_layout is not None:
+            local = len(self.tp_layout.index)
+            n_out, n_in = (local, n_in) if tp_dim == 0 else (n_out, local)
         super().__init__(n_in, n_out, bias=bias, device=device, dtype=torch.float32)
         self.compute_dtype = dtype
+        self.reduce = tp if tp_dim == 1 else None
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.reduce is None:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = reduce_from_tp(F.linear(x.to(dt), self.weight.to(dt)), self.reduce)
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.LayerNorm):
@@ -103,57 +145,95 @@ class LayerNorm(nn.LayerNorm):
 
 class Embedding(nn.Embedding):
     """flax ``Embed``: an fp32 table whose rows are cast to ``dtype``;
-    :meth:`attend` is the tied head, computed in ``dtype``."""
+    :meth:`attend` is the tied head, computed in ``dtype``.
 
-    def __init__(self, n: int, dim: int, dtype: torch.dtype, device=None):
-        super().__init__(n, dim, device=device, dtype=torch.float32)
+    With ``tp``, vocab-parallel: this rank holds rows ``vocab_start`` ...
+    ``vocab_stop`` (a contiguous, possibly uneven part), looks up the ids
+    that fall there, and the rows are summed over tp; :meth:`attend` then
+    gives this rank's slice of the logits."""
+
+    def __init__(self, n: int, dim: int, dtype: torch.dtype, device=None,
+                 *, tp: Optional[TPGroup] = None):
+        self.tp = tp
+        self.tp_layout = tp_layout(tp, 0, n)
+        self.vocab_start, self.vocab_stop = (
+            split_range(n, tp.size, tp.rank) if tp is not None else (0, n))
+        super().__init__(self.vocab_stop - self.vocab_start, dim, device=device,
+                         dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, idx):
-        return super().forward(idx).to(self.compute_dtype)
+        if self.tp is None:
+            return super().forward(idx).to(self.compute_dtype)
+        inside = (idx >= self.vocab_start) & (idx < self.vocab_stop)
+        rows = F.embedding(torch.where(inside, idx - self.vocab_start, 0), self.weight)
+        rows = reduce_from_tp(rows.masked_fill(~inside[..., None], 0.0), self.tp)
+        return rows.to(self.compute_dtype)
 
     def attend(self, x):
         dt = self.compute_dtype
         return x.to(dt) @ self.weight.to(dt).T
 
 
+def local_heads(n_head: int, tp: Optional[TPGroup]) -> Tuple[int, int]:
+    """[first, stop) of the query heads a tp rank holds; tp must divide the
+    head count (Megatron's layout keeps whole heads on a rank)."""
+    if tp is None:
+        return 0, n_head
+    if n_head % tp.size:
+        raise ValueError(
+            f"tensor parallelism needs whole heads on each rank: {n_head} "
+            f"heads do not split over tp = {tp.size}")
+    per = n_head // tp.size
+    return tp.rank * per, (tp.rank + 1) * per
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
-        self.n_head = cfg.n_head
+        C = cfg.n_embd
+        first, stop = local_heads(cfg.n_head, tp)
+        self.tp = tp
+        self.n_head = stop - first
+        self.head_dim = C // cfg.n_head
         self.attention = attention_for(cfg)
-        self.c_attn = Dense(cfg.n_embd, 3 * cfg.n_embd, cfg.dtype, device)
-        self.c_proj = Dense(cfg.n_embd, cfg.n_embd, cfg.dtype, device)
+        # this rank's heads of q, of k and of v: the same rows of each third
+        rows = torch.arange(first * self.head_dim, stop * self.head_dim)
+        self.c_attn = Dense(C, 3 * C, cfg.dtype, device, tp=tp, tp_dim=0,
+                            tp_index=torch.cat([rows, rows + C, rows + 2 * C]))
+        self.c_proj = Dense(C, C, cfg.dtype, device, tp=tp, tp_dim=1, tp_index=rows)
 
     def qkv(self, x):
-        """(..., C) -> q, k, v each (..., n_head, head_dim)."""
-        q, k, v = self.c_attn(x).chunk(3, dim=-1)
-        shape = x.shape[:-1] + (self.n_head, x.shape[-1] // self.n_head)
+        """(..., C) -> q, k, v each (..., n_head, head_dim), this rank's heads."""
+        q, k, v = self.c_attn(copy_to_tp(x, self.tp)).chunk(3, dim=-1)
+        shape = x.shape[:-1] + (self.n_head, self.head_dim)
         return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
     def forward(self, x):
-        B, T, C = x.shape
+        B, T, _ = x.shape
         y = self.attention(*self.qkv(x))
-        return self.c_proj(y.reshape(B, T, C))
+        return self.c_proj(y.reshape(B, T, self.n_head * self.head_dim))
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
-        self.c_fc = Dense(cfg.n_embd, 4 * cfg.n_embd, cfg.dtype, device)
-        self.c_proj = Dense(4 * cfg.n_embd, cfg.n_embd, cfg.dtype, device)
+        self.tp = tp
+        self.c_fc = Dense(cfg.n_embd, 4 * cfg.n_embd, cfg.dtype, device, tp=tp, tp_dim=0)
+        self.c_proj = Dense(4 * cfg.n_embd, cfg.n_embd, cfg.dtype, device, tp=tp, tp_dim=1)
 
     def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        h = self.c_fc(copy_to_tp(x, self.tp))
+        return self.c_proj(F.gelu(h, approximate="tanh"))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd, cfg.dtype, device)
-        self.attn = CausalSelfAttention(cfg, device)
+        self.attn = CausalSelfAttention(cfg, device, tp)
         self.ln_2 = LayerNorm(cfg.n_embd, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, tp)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -161,31 +241,39 @@ class Block(nn.Module):
 
 
 class GPT2(nn.Module):
-    """GPT-2 on ``device`` (default CUDA). Its weights start at torch's
-    default initialisation; :func:`init_params` gives flax's instead and
-    :func:`load_flax_params` loads the JAX package's."""
+    """GPT-2 on ``device`` (default CUDA); with ``tp``, this tp rank's shard
+    of it. Its weights start at torch's default initialisation;
+    :func:`init_params` gives flax's instead and :func:`load_flax_params`
+    loads the JAX package's."""
 
-    def __init__(self, config: GPT2Config, device=None):
+    def __init__(self, config: GPT2Config, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         self.config = config
+        self.tp = tp
         dev = resolve_device(device)
         dt = config.dtype
-        self.wte = Embedding(config.vocab_size, config.n_embd, dt, dev)
+        self.wte = Embedding(config.vocab_size, config.n_embd, dt, dev, tp=tp)
         self.wpe = Embedding(config.block_size, config.n_embd, dt, dev)
         self.h = nn.ModuleList(self._block(i, dev) for i in range(config.n_layer))
         self.ln_f = LayerNorm(config.n_embd, dt, dev)
 
+    @property
+    def vocab_start(self) -> int:
+        """The first vocabulary id of this rank's logits."""
+        return self.wte.vocab_start
+
     def _block(self, i: int, device) -> nn.Module:
         """Block ``i`` (the hook ``GPT2MoE`` overrides for its MoE blocks)."""
-        return Block(self.config, device)
+        return Block(self.config, device, self.tp)
 
     def head(self, x):
-        """Final norm + weight-tied head in ``dtype``: (..., C) -> (..., vocab)."""
-        return self.wte.attend(self.ln_f(x))
+        """Final norm + weight-tied head in ``dtype``: (..., C) -> (..., vocab)
+        (this rank's vocabulary slice under tp)."""
+        return self.wte.attend(copy_to_tp(self.ln_f(x), self.tp))
 
-    def forward(self, idx):
+    def forward(self, idx, pos_offset: int = 0):
         B, T = idx.shape
-        pos = torch.arange(T, device=idx.device)
+        pos = torch.arange(T, device=idx.device) + pos_offset
         x = self.wte(idx) + self.wpe(pos)[None]
         remat = self.config.remat and torch.is_grad_enabled()
         for block in self.h:
@@ -202,6 +290,27 @@ def forward(config: GPT2Config, model: GPT2, idx):
 def loss_fn(logits, targets):
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def vocab_parallel_loss(logits, targets, tp: Optional[TPGroup], vocab_start: int = 0):
+    """:func:`loss_fn` over logits sharded on the vocabulary: ``logits`` is
+    this tp rank's slice (..., V_local) of ids ``vocab_start`` onwards.
+    flax's fp32 log-softmax: the max (no gradient) and the sum of exps are
+    reduced over tp, and the target's logit comes from the rank that holds
+    it. Without tp it is :func:`loss_fn`."""
+    if tp is None:
+        return loss_fn(logits, targets)
+    x = logits.float()
+    with torch.no_grad():
+        m = x.amax(dim=-1)
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX, group=tp.group)
+    shifted = x - m[..., None]
+    sum_exp = reduce_from_tp(shifted.exp().sum(dim=-1), tp)
+    local = targets - vocab_start
+    inside = (local >= 0) & (local < x.shape[-1])
+    picked = shifted.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+    picked = reduce_from_tp(picked.masked_fill(~inside, 0.0), tp)
+    return (sum_exp.log() - picked).mean()
 
 
 def num_params(model: nn.Module) -> int:
@@ -231,3 +340,23 @@ def load_flax_params(model: GPT2, params: Dict[str, Any]) -> GPT2:
 
 
 load_flax_state = _flax.load_flax_state
+
+
+# Megatron-style tensor-parallel layout + fsdp on the complementary dim: the
+# JAX package's GPT2_SHARDING_PATTERNS in the port's names and layouts (a
+# dense weight is (out, in), the transpose of the flax kernel's spec;
+# embedding tables are not transposed).
+GPT2_SHARDING_PATTERNS = [
+    (r"wte\.weight", P("tp", "fsdp")),
+    (r"wpe\.weight", P(None, "fsdp")),
+    (r"attn\.c_attn\.weight", P("tp", "fsdp")),   # column parallel
+    (r"attn\.c_attn\.bias", P("tp")),
+    (r"attn\.c_proj\.weight", P("fsdp", "tp")),   # row parallel
+    (r"attn\.c_proj\.bias", P()),
+    (r"mlp\.c_fc\.weight", P("tp", "fsdp")),
+    (r"mlp\.c_fc\.bias", P("tp")),
+    (r"mlp\.c_proj\.weight", P("fsdp", "tp")),
+    (r"mlp\.c_proj\.bias", P()),
+    (r"ln_", P()),
+]
+GPT2_SHARDING_RULES = ShardingRules(GPT2_SHARDING_PATTERNS, default=P())

@@ -21,9 +21,17 @@ dk/dv on the card) see k and v shaped like q, the contract they share with
 the Pallas kernels.
 
 Each block is checkpointed while grad is enabled (``config.remat``), the
-counterpart of ``nn.remat(LlamaBlock)``. The tensor-parallel layout
-(``LLAMA_SHARDING_PATTERNS``) waits for the port's mesh (ROADMAP Queue A
-item 8).
+counterpart of ``nn.remat(LlamaBlock)``.
+
+On a mesh the module is built with a tp group and holds this rank's shard,
+Megatron's layout of ``LLAMA_SHARDING_PATTERNS``: column-parallel
+``wq``/``wk``/``wv``/``gate``/``up`` and the vocab-parallel ``lm_head``,
+row-parallel ``wo``/``down``, a vocab-parallel ``tok_emb``, RMSNorm weights
+replicated. A rank holds whole query heads, and the KV heads they read:
+where tp exceeds ``n_kv_head`` (a multiple of it), tp / n_kv_head ranks
+hold the same KV head (``tp_copies``), and the step sums its gradients
+over them. ``repeat_kv`` then repeats only the local heads. RoPE takes
+global positions through ``pos_offset``.
 """
 
 from __future__ import annotations
@@ -39,8 +47,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import _flax
-from ray_tpu_torch.models.gpt2 import Dense, Embedding, loss_fn, num_params  # noqa: F401
+from ray_tpu_torch.models.gpt2 import (  # noqa: F401
+    Dense,
+    Embedding,
+    local_heads,
+    loss_fn,
+    num_params,
+    vocab_parallel_loss,
+)
 from ray_tpu_torch.ops.attention import attention_for
+from ray_tpu_torch.parallel._collectives import TPGroup, copy_to_tp, split_range
+from ray_tpu_torch.parallel.mesh import P, ShardingRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +74,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16   # compute type; params stay fp32
     use_flash_attention: bool = True       # else the einsum path
     remat: bool = True                     # checkpoint each block under grad
+    # Override the attention primitive, e.g. ring attention bound to the sp
+    # ranks. Signature (q, k, v) -> out, all (B, T, H, D) with H the heads
+    # this rank holds.
+    attn_fn: Any = None
 
     @property
     def head_dim(self) -> int:
@@ -129,59 +150,86 @@ def repeat_kv(x, rep: int):
     return x if rep == 1 else x.repeat_interleave(rep, dim=-2)
 
 
+def local_kv_heads(n_head: int, n_kv_head: int, tp: Optional[TPGroup]):
+    """([first, stop) of the KV heads a tp rank holds, how many tp ranks
+    hold each of them): a contiguous part where tp divides ``n_kv_head``;
+    where tp is a multiple of it, the one KV head the rank's query heads
+    read, held by tp / n_kv_head ranks."""
+    if tp is None or n_kv_head % tp.size == 0:
+        return split_range(n_kv_head, 1 if tp is None else tp.size,
+                           0 if tp is None else tp.rank), 1
+    if tp.size % n_kv_head:
+        raise ValueError(f"{n_kv_head} KV heads do not split over tp = {tp.size}, "
+                         f"nor does tp = {tp.size} repeat them evenly")
+    copies = tp.size // n_kv_head
+    first = local_heads(n_head, tp)[0] // (n_head // n_kv_head)
+    return (first, first + 1), copies
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.attention = attention_for(cfg)
-        hd, dt = cfg.head_dim, cfg.dtype
-        self.wq = Dense(cfg.n_embd, cfg.n_head * hd, dt, device, bias=False)
-        self.wk = Dense(cfg.n_embd, cfg.n_kv_head * hd, dt, device, bias=False)
-        self.wv = Dense(cfg.n_embd, cfg.n_kv_head * hd, dt, device, bias=False)
-        self.wo = Dense(cfg.n_head * hd, cfg.n_embd, dt, device, bias=False)
+        hd, dt, C = cfg.head_dim, cfg.dtype, cfg.n_embd
+        first, stop = local_heads(cfg.n_head, tp)
+        (kv_first, kv_stop), copies = local_kv_heads(cfg.n_head, cfg.n_kv_head, tp)
+        self.n_head, self.n_kv_head = stop - first, kv_stop - kv_first
+        q_rows = torch.arange(first * hd, stop * hd)
+        kv_rows = torch.arange(kv_first * hd, kv_stop * hd)
+        self.wq = Dense(C, cfg.n_head * hd, dt, device, bias=False, tp=tp, tp_dim=0,
+                        tp_index=q_rows)
+        self.wk = Dense(C, cfg.n_kv_head * hd, dt, device, bias=False, tp=tp, tp_dim=0,
+                        tp_index=kv_rows, tp_copies=copies)
+        self.wv = Dense(C, cfg.n_kv_head * hd, dt, device, bias=False, tp=tp, tp_dim=0,
+                        tp_index=kv_rows, tp_copies=copies)
+        self.wo = Dense(cfg.n_head * hd, C, dt, device, bias=False, tp=tp, tp_dim=1,
+                        tp_index=q_rows)
 
     def qkv(self, x, positions):
         """(..., C) -> q (..., n_head, D) and k, v (..., n_kv_head, D), q and
         k rotated to integer ``positions``, which broadcast against x's
         leading axes: (T,) for a (B, T, C) forward, one per row while
         serving."""
-        cfg = self.cfg
-        hd = cfg.head_dim
-        ang = rope_angles(hd, cfg.rope_theta, positions)
-        q = apply_rope(self.wq(x).unflatten(-1, (cfg.n_head, hd)), ang)
-        k = apply_rope(self.wk(x).unflatten(-1, (cfg.n_kv_head, hd)), ang)
-        v = self.wv(x).unflatten(-1, (cfg.n_kv_head, hd))
+        hd = self.cfg.head_dim
+        ang = rope_angles(hd, self.cfg.rope_theta, positions)
+        x = copy_to_tp(x, self.tp)
+        q = apply_rope(self.wq(x).unflatten(-1, (self.n_head, hd)), ang)
+        k = apply_rope(self.wk(x).unflatten(-1, (self.n_kv_head, hd)), ang)
+        v = self.wv(x).unflatten(-1, (self.n_kv_head, hd))
         return q, k, v
 
     def forward(self, x, pos_offset: int = 0):
-        cfg = self.cfg
-        B, T, C = x.shape
+        B, T, _ = x.shape
         q, k, v = self.qkv(x, torch.arange(T, device=x.device) + pos_offset)
-        rep = cfg.n_head // cfg.n_kv_head
+        rep = self.n_head // self.n_kv_head
         k, v = repeat_kv(k, rep), repeat_kv(v, rep)
         y = self.attention(q, k, v)
-        return self.wo(y.reshape(B, T, C))
+        return self.wo(y.reshape(B, T, self.n_head * self.cfg.head_dim))
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         dt = cfg.dtype
-        self.gate = Dense(cfg.n_embd, cfg.mlp_dim, dt, device, bias=False)
-        self.up = Dense(cfg.n_embd, cfg.mlp_dim, dt, device, bias=False)
-        self.down = Dense(cfg.mlp_dim, cfg.n_embd, dt, device, bias=False)
+        self.tp = tp
+        self.gate = Dense(cfg.n_embd, cfg.mlp_dim, dt, device, bias=False, tp=tp, tp_dim=0)
+        self.up = Dense(cfg.n_embd, cfg.mlp_dim, dt, device, bias=False, tp=tp, tp_dim=0)
+        self.down = Dense(cfg.mlp_dim, cfg.n_embd, dt, device, bias=False, tp=tp, tp_dim=1)
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp)
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.n_embd, cfg.rms_eps, device)
-        self.attn = LlamaAttention(cfg, device)
+        self.attn = LlamaAttention(cfg, device, tp)
         self.mlp_norm = RMSNorm(cfg.n_embd, cfg.rms_eps, device)
-        self.mlp = LlamaMLP(cfg, device)
+        self.mlp = LlamaMLP(cfg, device, tp)
 
     def forward(self, x, pos_offset: int = 0):
         x = x + self.attn(self.attn_norm(x), pos_offset)
@@ -189,23 +237,32 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    """Llama on ``device`` (default CUDA). Its weights start at torch's
-    default initialisation; :func:`init_params` gives flax's instead and
-    :func:`load_flax_params` loads the JAX package's."""
+    """Llama on ``device`` (default CUDA); with ``tp``, this tp rank's shard
+    of it. Its weights start at torch's default initialisation;
+    :func:`init_params` gives flax's instead and :func:`load_flax_params`
+    loads the JAX package's."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         self.config = config
+        self.tp = tp
         dev = resolve_device(device)
-        self.tok_emb = Embedding(config.vocab_size, config.n_embd, config.dtype, dev)
-        self.h = nn.ModuleList(LlamaBlock(config, dev) for _ in range(config.n_layer))
+        self.tok_emb = Embedding(config.vocab_size, config.n_embd, config.dtype, dev,
+                                 tp=tp)
+        self.h = nn.ModuleList(LlamaBlock(config, dev, tp) for _ in range(config.n_layer))
         self.final_norm = RMSNorm(config.n_embd, config.rms_eps, dev)
         self.lm_head = Dense(config.n_embd, config.vocab_size, torch.float32, dev,
-                             bias=False)
+                             bias=False, tp=tp, tp_dim=0)
+
+    @property
+    def vocab_start(self) -> int:
+        """The first vocabulary id of this rank's logits."""
+        return self.tok_emb.vocab_start
 
     def head(self, x):
-        """Final norm + untied head in fp32: (..., C) -> (..., vocab) fp32."""
-        return self.lm_head(self.final_norm(x).float())
+        """Final norm + untied head in fp32: (..., C) -> (..., vocab) fp32
+        (this rank's vocabulary slice under tp)."""
+        return self.lm_head(copy_to_tp(self.final_norm(x).float(), self.tp))
 
     def forward(self, idx, pos_offset: int = 0):
         x = self.tok_emb(idx)
@@ -244,3 +301,18 @@ def load_flax_params(model: Llama, params: Dict[str, Any]) -> Llama:
 
 
 load_flax_state = _flax.load_flax_state
+
+
+# Megatron-style TP layout + fsdp on the complementary dim: the JAX
+# package's LLAMA_SHARDING_PATTERNS in the port's names and (out, in)
+# layouts.
+LLAMA_SHARDING_PATTERNS = [
+    (r"tok_emb\.weight", P("tp", "fsdp")),
+    (r"attn\.w[qkv]\.weight", P("tp", "fsdp")),   # column parallel
+    (r"attn\.wo\.weight", P("fsdp", "tp")),       # row parallel
+    (r"mlp\.(gate|up)\.weight", P("tp", "fsdp")),
+    (r"mlp\.down\.weight", P("fsdp", "tp")),
+    (r"lm_head\.weight", P("tp", "fsdp")),
+    (r"norm", P()),
+]
+LLAMA_SHARDING_RULES = ShardingRules(LLAMA_SHARDING_PATTERNS, default=P())

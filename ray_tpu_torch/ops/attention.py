@@ -434,7 +434,10 @@ def einsum_causal_attention(q, k, v) -> torch.Tensor:
 
 
 def attention_for(cfg):
-    """A model's attention, (B, T, H, D) -> (B, T, H, D), by its config's
-    ``use_flash_attention``: :func:`causal_attention` (the kernels) on,
-    :func:`einsum_causal_attention` off."""
+    """A model's attention, (B, T, H, D) -> (B, T, H, D): the config's
+    ``attn_fn`` where it is set (ring attention on a mesh with sp > 1),
+    else by ``use_flash_attention``: :func:`causal_attention` (the kernels)
+    on, :func:`einsum_causal_attention` off."""
+    if getattr(cfg, "attn_fn", None) is not None:
+        return cfg.attn_fn
     return causal_attention if cfg.use_flash_attention else einsum_causal_attention

@@ -5,7 +5,7 @@ einsums (the Mesh-TensorFlow formulation the JAX package uses), so every
 shape is static. The JAX package computes all of it outside any Pallas
 kernel, and so does the port: the einsums go to ``torch.einsum``. The
 expert-parallel layout (``MOE_SHARDING_PATTERNS``, the experts' leading dim
-over an ``ep`` axis) waits for the port's mesh (ROADMAP Queue A item 8).
+over an ``ep`` axis) waits for ROADMAP Queue A item 8b.
 
 Where flax's ``MoE`` hands its aux loss to the caller through
 ``self.sow("losses", ...)``, :class:`MoE` returns it beside its output.

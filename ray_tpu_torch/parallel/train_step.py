@@ -1,6 +1,6 @@
-"""One training step on one CUDA card: the port of
-``ray_tpu/parallel/train_step.py`` ``TrainStep`` at dp = 1, for every model
-family of the port.
+"""The training step: the port of ``ray_tpu/parallel/train_step.py``
+``TrainStep``, on one CUDA card for every model family of the port, and on
+a device mesh of dp, fsdp, tp and sp for GPT-2 and Llama.
 
 The config's type picks the family, as ``model_for_mesh`` does in the JAX
 package: ``GPT2Config`` trains GPT-2, ``GPT2MoEConfig`` GPT-2-MoE (whose
@@ -26,20 +26,51 @@ State is a dict ``{"params": model, "opt_state": {"count", "mu", "nu"},
 state buffers, this one updates the parameters and moments in place and
 returns the same dict.
 
-Not ported yet: a mesh (dp/fsdp/tp/sp/ep, ROADMAP Queue A item 8) raises
-``NotImplementedError``.
+On a mesh (``TrainStep(cfg, make_mesh({...}))``, one process per rank,
+each calling the same methods in the same order) each rank computes its
+shard, and losses, gradient norms and gathered parameters are those of the
+JAX step on the same mesh:
+
+  dp, fsdp  FSDP2 ``fully_shard`` over the 2-D (replicate, fsdp) mesh of
+            ``mesh.data_parallel_mesh``: parameters, gradients and Adam's
+            moments sharded over fsdp on the dimension the sharding rule
+            names (dim 0 where it names none), gradients averaged over dp,
+            fsdp and sp (the JAX loss is the global batch's mean)
+  tp        Megatron layers on local tensors (``models/gpt2.py``,
+            ``models/llama.py``) with the collectives of
+            ``parallel/_collectives.py``, a vocab-parallel embedding, head
+            and loss
+  sp        ring attention over the sp ranks (``ops/ring_attention.py``)
+            in place of the model's attention, positions offset by the
+            rank's place in the sequence
+
+The backward is ``loss.backward()`` (``torch.autograd.grad`` cannot see
+FSDP2's sharded parameters); gradients of KV heads that several tp ranks
+hold are summed over them, and the global norm counts each element once
+(tp-replicated gradients from tp rank 0 only). The update is the same
+optax chain on each rank's local shards. The reported loss is the mean
+over every rank. Not ported yet (ROADMAP Queue A item 8b): GPT-2-MoE on a
+mesh and the ep and pp axes, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.fsdp import fully_shard
+from torch.distributed.tensor import Shard
 
 from ray_tpu_torch._private import flight_recorder as _fr
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.models import gpt2, gpt2_moe, llama
+from ray_tpu_torch.models import _flax, gpt2, gpt2_moe, llama
+from ray_tpu_torch.ops.ring_attention import ring_causal_attention
+from ray_tpu_torch.parallel import mesh as _mesh
+from ray_tpu_torch.parallel._collectives import TPGroup, all_reduce_mean
 from ray_tpu_torch.train import _telemetry
 
 ADAM_B1 = 0.9
@@ -59,7 +90,8 @@ def _batch_counts(batch) -> Tuple[Optional[int], Optional[int]]:
     return tokens, (tokens // int(idx.shape[-1]) if idx.shape[-1] else None)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """optax's ``clip_by_global_norm``: returns (clipped grads, the global
     norm before clipping). Below the limit the gradients pass unchanged;
@@ -70,8 +102,11 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
     The norm is optax's ``global_norm``, sqrt(sum of each tensor's sum of
     squares): ``sum`` reduces pairwise on both devices, where the CPU's
     ``vector_norm`` of an fp32 tensor of tens of millions of elements (the
-    GPT-2 embedding's gradient) drifts by 1e-3 relative."""
-    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    GPT-2 embedding's gradient) drifts by 1e-3 relative. On a mesh the
+    caller passes the ``norm`` of the whole gradient, of which ``grads``
+    are this rank's shards."""
+    if norm is None:
+        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
     keep = norm < max_norm
     one = torch.ones_like(norm)
     out = torch._foreach_div(grads, torch.where(keep, one, norm))
@@ -95,9 +130,61 @@ def family_of(model_cfg):
         f"{type(model_cfg).__name__}")
 
 
+def check_mesh(model_cfg, mesh) -> None:
+    """Refuse what the port does not train on a mesh yet (item 8b), and a
+    tp that does not split the model's heads (``ValueError``), before any
+    collective runs."""
+    if isinstance(model_cfg, gpt2_moe.GPT2MoEConfig):
+        raise NotImplementedError(
+            "GPT-2-MoE on a mesh (its ep all-to-all and sharding rules) comes "
+            "with ROADMAP Queue A item 8b")
+    for axis in ("ep", "pp"):
+        if _mesh.axis_size(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"the {axis} axis comes with ROADMAP Queue A item 8b")
+    family, _ = family_of(model_cfg)
+    tp = _mesh.axis_size(mesh, "tp")
+    fake = TPGroup(None, tp, 0) if tp > 1 else None
+    gpt2.local_heads(model_cfg.n_head, fake)
+    if family is llama:
+        llama.local_kv_heads(model_cfg.n_head, model_cfg.n_kv_head, fake)
+
+
+def tp_group(mesh) -> Optional[TPGroup]:
+    """This rank's tp group, or None where tp is absent or of size 1."""
+    group = _mesh.axis_group(mesh, "tp")
+    return None if group is None else TPGroup(group, _mesh.axis_size(mesh, "tp"),
+                                              _mesh.axis_index(mesh, "tp"))
+
+
+def model_for_mesh(cfg, mesh, device=None):
+    """This rank's module of ``cfg``'s family on ``mesh``: ring attention
+    over the sp ranks iff sp > 1, this tp rank's shard of every layer;
+    torch's default initialisation."""
+    check_mesh(cfg, mesh)
+    _, model_cls = family_of(cfg)
+    sp = _mesh.axis_group(mesh, "sp")
+    if sp is not None:
+        cfg = dataclasses.replace(
+            cfg, attn_fn=functools.partial(ring_causal_attention, group=sp))
+    return model_cls(cfg, device=device, tp=tp_group(mesh))
+
+
+def default_rules_for(cfg) -> _mesh.ShardingRules:
+    """The family's sharding rules."""
+    if isinstance(cfg, gpt2_moe.GPT2MoEConfig):
+        raise NotImplementedError("GPT-2-MoE's sharding rules come with ROADMAP "
+                                  "Queue A item 8b")
+    if isinstance(cfg, llama.LlamaConfig):
+        return llama.LLAMA_SHARDING_RULES
+    return gpt2.GPT2_SHARDING_RULES
+
+
 class TrainStep:
     """The JAX package's ``TrainStep`` on one CUDA card (``device=None``) or,
-    for the tests, the CPU (``device="cpu"``)::
+    for the tests, the CPU (``device="cpu"``); with a ``mesh`` (a
+    ``DeviceMesh`` from ``parallel.mesh.make_mesh``), this rank's part of
+    the step on that mesh, on the mesh's device type::
 
         ts = TrainStep(GPT2Config.tiny())     # or LlamaConfig, GPT2MoEConfig
         state = ts.init(torch.Generator().manual_seed(0))
@@ -125,12 +212,26 @@ class TrainStep:
         telemetry: bool = True,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's TrainStep runs on one device; meshes (dp, fsdp, "
-                "tp, sp, ep) come with ROADMAP Queue A item 8")
         self.family, self._model_cls = family_of(model_cfg)
         self._is_moe = self.family is gpt2_moe
+        self.mesh = mesh
+        self.tp = None
+        self._token_scale = self._example_scale = 1
+        n_devices = 1
+        if mesh is not None:
+            check_mesh(model_cfg, mesh)
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device_type}")
+            device = mesh.device_type
+            self.rules = default_rules_for(model_cfg)
+            self.tp = tp_group(mesh)
+            self._dp_mesh = _mesh.data_parallel_mesh(mesh)
+            self._fsdp_group = self._dp_mesh.get_group("fsdp")
+            rows = _mesh.axis_size(mesh, "dp") * _mesh.axis_size(mesh, "fsdp")
+            self._seq_index = _mesh.axis_index(mesh, "sp")
+            self._example_scale = rows
+            self._token_scale = rows * _mesh.axis_size(mesh, "sp")
+            n_devices = mesh.size()
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.learning_rate = learning_rate
@@ -144,15 +245,21 @@ class TrainStep:
                 flops_per_step=flops_per_step,
                 flops_per_token=(None if flops_per_step is not None else
                                  _telemetry.estimate_flops_per_token(model_cfg)),
-                device=self.device)
+                n_devices=n_devices, device=self.device)
             _telemetry.set_current_recorder(self.telemetry)
 
     # ----------------------------------------------------------------- state
 
     def init(self, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Fresh state: flax-initialised fp32 parameters (drawn on the CPU
-        from ``generator``, default seed 0), zero moments, step 0."""
-        model = self.family.init_params(self.model_cfg, generator, device=self.device)
+        from ``generator``, default seed 0, so a mesh starts from the same
+        weights as one device), zero moments, step 0."""
+        if self.mesh is None:
+            model = self.family.init_params(self.model_cfg, generator, device=self.device)
+        else:
+            whole = self.family.init_params(self.model_cfg, generator, device="cpu")
+            model = _flax.load_full(self.new_model(), {
+                n: p.detach() for n, p in whole.named_parameters()})
         zeros = lambda: {n: torch.zeros_like(p) for n, p in model.named_parameters()}
         return {"params": model,
                 "opt_state": {"count": 0, "mu": zeros(), "nu": zeros()},
@@ -160,20 +267,45 @@ class TrainStep:
 
     def new_model(self):
         """The family's module for this config on this step's device, with
-        torch's default initialisation (``load_flax_state`` fills it)."""
-        return self._model_cls(self.model_cfg, device=self.device)
+        torch's default initialisation (``load_flax_state`` fills it); on a
+        mesh, this rank's shard of it (``model_for_mesh``) under FSDP2, each
+        block and then the root wrapped by ``fully_shard``."""
+        if self.mesh is None:
+            return self._model_cls(self.model_cfg, device=self.device)
+        model = model_for_mesh(self.model_cfg, self.mesh, self.device)
+        names = {id(p): n for n, p in model.named_parameters()}
+
+        def placement(p):   # fsdp on the dimension the rule names, else 0
+            dim = _mesh.spec_dim(self.rules.spec_for(names[id(p)]), "fsdp")
+            return Shard(dim or 0)
+
+        for block in model.h:
+            fully_shard(block, mesh=self._dp_mesh, shard_placement_fn=placement)
+        fully_shard(model, mesh=self._dp_mesh, shard_placement_fn=placement)
+        return model
 
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A batch of token ids (numpy or tensors) as int64 on the device."""
-        return {k: torch.as_tensor(v).to(self.device, torch.long)
-                for k, v in batch.items()}
+        """A batch of token ids (numpy or tensors) as int64 on the device; on
+        a mesh, the (rows, positions) of the global (..., B, T) batch that
+        this rank holds (``mesh.batch_sharding``)."""
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            if self.mesh is not None:
+                v = v[(...,) + _mesh.batch_sharding(self.mesh, v.shape[-2:])]
+            out[k] = v.to(self.device, torch.long)
+        return out
 
     # ------------------------------------------------------------------ step
 
     def loss_and_grads(self, state, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss (with the MoE aux loss for GPT-2-MoE, as the JAX step's
-        objective) and the raw (unclipped) gradient of every parameter."""
+        objective) and the raw (unclipped) gradient of every parameter; on
+        a mesh the loss is the mean over every rank and the gradients are
+        this rank's shards of the global batch's gradient."""
         model = state["params"]
+        if self.mesh is not None:
+            return self._mesh_loss_and_grads(model, batch)
         names, params = zip(*model.named_parameters())
         if self._is_moe:
             logits, aux = model(batch["idx"])
@@ -182,15 +314,59 @@ class TrainStep:
             loss = self.family.loss_fn(model(batch["idx"]), batch["targets"])
         return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
 
+    def _mesh_loss_and_grads(self, model, batch):
+        idx = batch["idx"]
+        logits = model(idx, pos_offset=self._seq_index * idx.shape[-1])
+        loss = self.family.vocab_parallel_loss(logits, batch["targets"], self.tp,
+                                               model.vocab_start)
+        loss.backward()     # FSDP2 averages each gradient over dp, fsdp and sp
+        grads = {}
+        for name, p in model.named_parameters():
+            grads[name] = _flax.local_tensor(p.grad)
+            p.grad = None
+            layout = _flax.tp_layout(model, name)
+            if layout is not None and layout.copies > 1:
+                self._sum_copies(grads[name], layout)
+        return all_reduce_mean(loss), grads
+
+    def _sum_copies(self, g: torch.Tensor, layout) -> None:
+        """Sum the gradient of rows that several tp ranks hold (a KV head
+        read by each rank's query heads) over those ranks, in place."""
+        shape = list(g.shape)
+        shape[layout.dim] = layout.full
+        index = layout.index.to(g.device)
+        full = g.new_zeros(shape).index_copy_(layout.dim, index, g)
+        dist.all_reduce(full, group=self.tp.group)
+        g.copy_(full.index_select(layout.dim, index))
+
+    def _mesh_norm(self, model, names, grads) -> torch.Tensor:
+        """The global norm of the whole gradient from this rank's shards:
+        square sums summed over fsdp, then over tp, where a tp-replicated
+        gradient (or a KV head's copy) counts on one rank only."""
+        sq = torch.stack([g.square().sum() for g in grads])
+        dist.all_reduce(sq, group=self._fsdp_group)
+        if self.tp is None:
+            return sq.sum().sqrt()
+        owner = []
+        for name in names:
+            layout = _flax.tp_layout(model, name)
+            owner.append(layout.owner if layout is not None else self.tp.rank == 0)
+        total = (sq * torch.tensor(owner, dtype=sq.dtype, device=sq.device)).sum()
+        dist.all_reduce(total, group=self.tp.group)
+        return total.sqrt()
+
     def _step(self, state, batch) -> Dict[str, torch.Tensor]:
         loss, grads = self.loss_and_grads(state, batch)
         names = list(grads)
-        params = dict(state["params"].named_parameters())
-        g, norm = clip_by_global_norm([grads[n] for n in names], self.grad_clip)
+        model = state["params"]
+        params = dict(model.named_parameters())
+        norm = (None if self.mesh is None else
+                self._mesh_norm(model, names, [grads[n] for n in names]))
+        g, norm = clip_by_global_norm([grads[n] for n in names], self.grad_clip, norm)
         opt = state["opt_state"]
-        mu = [opt["mu"][n] for n in names]
-        nu = [opt["nu"][n] for n in names]
-        p = [params[n] for n in names]
+        mu = [_flax.local_tensor(opt["mu"][n]) for n in names]
+        nu = [_flax.local_tensor(opt["nu"][n]) for n in names]
+        p = [_flax.local_tensor(params[n]) for n in names]
         b2 = self.beta2
         with torch.no_grad():
             torch._foreach_mul_(mu, ADAM_B1)
@@ -215,11 +391,13 @@ class TrainStep:
                 repeats: int = 1) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # a mesh rank books the global batch: its shard times the data shards
         tokens, examples = (None, None) if compiled else _batch_counts(batch)
         self.telemetry.record_step(
             time.perf_counter() - t0, steps=steps,
-            tokens=tokens and tokens * repeats,
-            examples=examples and examples * repeats, compile_step=compiled)
+            tokens=tokens and tokens * repeats * self._token_scale,
+            examples=examples and examples * repeats * self._example_scale,
+            compile_step=compiled)
 
     def step(self, state, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """One optimizer step. Updates ``state`` in place (where the JAX

@@ -28,7 +28,10 @@ What differs on the card:
 
   - The peak table is keyed by substrings of ``torch.cuda.get_device_name``
     and holds the H100 SXM's dense bf16 peak; an unknown device (the CPU,
-    another card) gets no MFU rather than a wrong one.
+    another card) gets no MFU rather than a wrong one. As in the JAX
+    package, the peak is per device times ``n_devices`` (a mesh
+    ``TrainStep`` passes its mesh size and books the global batch's
+    tokens).
   - HBM comes from ``torch.cuda.memory_allocated`` (in use) and
     ``torch.cuda.max_memory_allocated`` (peak); absent on the CPU.
   - Torch keeps no jit cache, so there is no cache miss to detect: the
@@ -95,13 +98,14 @@ def estimate_flops_per_token(model_cfg: Any) -> Optional[float]:
 
 
 class StepRecorder:
-    """Accumulates step-level training telemetry for one run on one device
-    and publishes it.
+    """Accumulates step-level training telemetry for one run and publishes
+    it.
 
     Thread-safe; one recorder per training run (``TrainStep`` creates one
     and makes it the process's current recorder). ``device`` (a torch
     device) is where HBM is read and, when ``peak_flops`` is not given,
-    whose name picks the peak. ``emit_metrics`` and ``emit_spans`` turn the
+    whose name picks the peak; ``n_devices`` (default 1) is how many such
+    devices the run's steps and tokens span, each with that peak. ``emit_metrics`` and ``emit_spans`` turn the
     metric records and the spans off; ``clock`` (durations) and
     ``wall_clock`` (span and flag times) are injectable for tests."""
 
@@ -111,6 +115,7 @@ class StepRecorder:
         flops_per_step: Optional[float] = None,
         flops_per_token: Optional[float] = None,
         peak_flops: Optional[float] = None,
+        n_devices: Optional[int] = None,
         device=None,
         run_name: str = "",
         emit_metrics: bool = True,
@@ -125,6 +130,7 @@ class StepRecorder:
         self._flops_per_step = flops_per_step
         self._flops_per_token = flops_per_token
         self._explicit_peak = peak_flops
+        self._n_devices = n_devices
         self._device = torch.device(device) if device is not None else None
         self.run_name = run_name
         self._emit_metrics = emit_metrics
@@ -281,11 +287,14 @@ class StepRecorder:
         return self.examples / self.productive_s
 
     def _peak_flops(self) -> Optional[float]:
+        """Peak FLOP/s of the whole run: per device times ``n_devices``."""
+        n = self._n_devices or 1
         if self._explicit_peak is not None:
-            return self._explicit_peak
+            return self._explicit_peak * n
         if self._device is None or self._device.type != "cuda":
             return None
-        return peak_flops_per_device(torch.cuda.get_device_name(self._device))
+        per = peak_flops_per_device(torch.cuda.get_device_name(self._device))
+        return None if per is None else per * n
 
     def mfu(self) -> Optional[float]:
         """Model FLOPs utilization: achieved FLOP/s over peak FLOP/s; None

@@ -290,15 +290,32 @@ def test_bf16_config_trains_fp32_master_weights():
     assert all(m.dtype == torch.float32 for m in state["opt_state"]["mu"].values())
 
 
+class _AxisSizes:
+    """The part of a ``DeviceMesh`` that the constructor reads before it
+    refuses a mesh (its axis names and sizes); multi-rank meshes are built
+    in tests/test_torch_train_step_mesh.py."""
+
+    def __init__(self, **axes):
+        self.mesh_dim_names = tuple(axes)
+        self._sizes = tuple(axes.values())
+
+    def size(self, dim):
+        return self._sizes[dim]
+
+
 @pytest.mark.parametrize("case", ["no_cuda", "mesh", "other_family"])
 def test_constructor_refuses_what_is_not_ported(monkeypatch, case):
     if case == "no_cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainStep(TCFG)
-    elif case == "mesh":
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            TrainStep(TCFG, object(), device="cpu")
+    elif case == "mesh":   # GPT-2-MoE on a mesh, and the ep and pp axes
+        moe = tgmoe.GPT2MoEConfig.tiny_moe(dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            TrainStep(moe, _AxisSizes(dp=2), device="cpu")
+        for axis in ("ep", "pp"):
+            with pytest.raises(NotImplementedError, match="item 8b"):
+                TrainStep(TCFG, _AxisSizes(dp=2, **{axis: 2}), device="cpu")
     else:   # a config that is not one of the port's families
         with pytest.raises(TypeError, match="LlamaConfig"):
             TrainStep(JCFG, device="cpu")
@@ -333,6 +350,24 @@ def test_telemetry_summary_matches_the_jax_recorder():
     assert ttel.estimate_flops_per_token(TCFG) == jtel.estimate_flops_per_token(JCFG)
     assert ttel.peak_flops_per_device("NVIDIA H100 80GB HBM3") == 989e12
     assert ttel.peak_flops_per_device("cpu") is None
+
+
+def test_telemetry_at_eight_devices_matches_the_jax_recorder():
+    """n_devices = 8: MFU over eight devices' peak, and tokens/s of the
+    tokens booked, by the JAX recorder's formula."""
+    kw = dict(flops_per_token=6e6, peak_flops=1e12, n_devices=8)
+    jclk, tclk = FakeClock(), FakeClock()
+    jrec = jtel.StepRecorder(clock=jclk, wall_clock=jclk, devices=[],
+                             emit_metrics=False, emit_spans=False, **kw)
+    trec = ttel.StepRecorder(clock=tclk, **kw)
+    for dt, extra in ((2.0, dict(compile_step=True)), (0.5, dict(tokens=8192, examples=64)),
+                      (0.5, dict(tokens=8192, examples=64))):
+        for clk, rec in ((jclk, jrec), (tclk, trec)):
+            clk.t += dt
+            rec.record_step(dt, **extra)
+    assert trec.summary() == jrec.summary()
+    assert trec.mfu() == jrec.mfu() == pytest.approx(6e6 * 16384 / 1.0 / 8e12)
+    assert trec.tokens_per_second() == jrec.tokens_per_second() == 16384.0
 
 
 def test_train_step_books_its_first_step_as_compile():
