@@ -88,11 +88,27 @@ script exits non-zero:
              a 4-layer GPT-2-124M-width and of a 4-layer Llama-160M-width
              model on the mesh against the same step off it (loss and
              grad_norm within 1e-5 relative, parameters within 2 * lr)
+ 13. moe_mesh  GPT2MoEConfig() through TrainStep on the same one-rank group,
+             make_mesh({"dp": 1, "fsdp": 1, "sp": 1, "tp": 1, "ep": 1}), at
+             B = 8, T = 1024 bf16 (a warm-up and three timed steps, 24 / 12 /
+             12 launches and no plain call a step, one more in a
+             device-trace window), its step times beside the moe phase's
+             median; then one fp32 step of a 4-layer
+             GPT2MoEConfig on the mesh against the same step off it (1e-5
+             relative, 2 * lr)
+ 14. pipeline  PipelineTrainStep(GPT2Config.gpt2_124m(), make_mesh({"dp": 1,
+             "pp": 1}), num_microbatches=2) at B = 16, T = 1024 bf16 (a
+             warm-up and three timed steps; launches per step the
+             schedule's: 12 x 2 x 2 forward with remat, 12 x 2 dq, 12 x 2
+             dk/dv, no plain call); then fp32 steps of a 4-layer
+             GPT-2-124M-width model on (4, 128): 4 microbatches against 1
+             on the card, and the card against the port's CPU step from
+             the same weights (1e-5 relative, 2 * lr)
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
-train; every full-width path must show 0 plain calls) and, last,
-``{"ok": true, "device": ...}``.
+train, MoE on the mesh, the pipeline; every full-width path must show 0
+plain calls) and, last, ``{"ok": true, "device": ...}``.
 
 With ``--ranks N`` it needs N cards and runs, after the device and build
 phases, only the mesh path across them: N processes, one card each, over
@@ -107,7 +123,15 @@ and the device's busy share); then one fp32 step of
 the 4-layer GPT-2-124M-width and Llama-160M-width models on each mesh of
 RANKS_PARITY_MESHES against the one-device step on each card (loss and
 grad_norm within 1e-4 relative: the sums run in another order across
-ranks; parameters within 2 * lr).
+ranks; parameters within 2 * lr). Then GPT2MoEConfig() trains alone on
+each card and on each mesh of RANKS_MOE_MESHES ({"ep": 4}, {"dp": 2,
+"ep": 2}) at B = 8, T = 1024, one step of each traced, with a 4-layer
+fp32 step on each mesh against one card; the pipeline trains GPT-2-124M on each mesh of
+RANKS_PIPE_MESHES ({"dp": 2, "pp": 2}, {"pp": 4}) beside one card's run
+at dp 1 x pp 1 (made by the parent process on card 0 before the ranks
+start), with a 4-layer fp32 step on each against that card's; and a
+GPT-2-124M-width model with 2 heads trains one fp32 step at {"tp": 4}
+(each head computed by 2 ranks) against one card.
 Without CUDA it exits 2 before printing any result.
 """
 
@@ -204,6 +228,20 @@ RANKS_PARITY_BATCH = (4, 128)  # rows split over dp x fsdp, positions over sp
 RANKS_REL_TOL = 1e-4           # fp32, sums across ranks in another order
 RANKS_TRAIN_STEPS = 3
 RANKS_DEADLINE_S = 900
+# the moe_mesh phase: GPT2MoEConfig() on a one-rank mesh naming every axis
+MOE_MESH_AXES = {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1, "ep": 1}
+# the pipeline phase: GPT-2-124M on a one-rank (dp, pp) mesh
+PIPE_AXES = {"dp": 1, "pp": 1}
+PIPE_MICRO = 2
+PIPE_BATCH = (16, 1024)
+PIPE_STEPS = 3                # timed steps after one warm-up step
+PIPE_PARITY_BATCH = (4, 128)  # fp32, 4 layers: rows split into 1 or 4 microbatches
+PIPE_LR = 3e-4                # PipelineTrainStep's default learning rate
+RANKS_MOE_MESHES = ({"ep": 4}, {"dp": 2, "ep": 2})
+RANKS_PIPE_MESHES = ({"dp": 2, "pp": 2}, {"pp": 4})
+# fault 3 on the cards: 2 heads of 384 over tp = 4 (the einsum attention:
+# the kernels take head dims up to 128)
+RANKS_FAULT3 = ({"tp": 4}, 2)
 TINY_SERVE = {"n_layer": 2, "n_embd": 64, "n_head": 4, "vocab_size": 96,
               "block_size": 64}
 TINY_POOL = {"num_blocks": 24, "block_size": 4}
@@ -1332,7 +1370,7 @@ def phase_head_dims(card: str):
 
 
 def mesh_parity(card: str, name: str, cfg, mesh, batch_shape=PARITY_BATCH,
-                rel_tol: float = MESH_REL_TOL):
+                rel_tol: float = MESH_REL_TOL, tag: str = "mesh"):
     """One fp32 step of ``cfg`` on ``mesh`` and off it, on the card, from the
     same weights and batch: loss and grad_norm to ``rel_tol`` relative,
     every parameter (gathered from the mesh) to 2 * lr."""
@@ -1352,10 +1390,11 @@ def mesh_parity(card: str, name: str, cfg, mesh, batch_shape=PARITY_BATCH,
     out = {"loss_rel_err": rel(mb["loss"], ma["loss"]),
            "grad_norm_rel_err": rel(mb["grad_norm"], ma["grad_norm"]),
            "param_abs_err": max(
-               (_flax.gather_full(model, n, q, meshed.tp) - p.detach().cpu()).abs().max().item()
+               (_flax.gather_full(model, n, q, meshed.tp, meshed.ep)
+                - p.detach().cpu()).abs().max().item()
                for (n, q), p in zip(model.named_parameters(), a["params"].parameters())),
            "loss": mb["loss"].item(), "grad_norm": mb["grad_norm"].item()}
-    log(f"[mesh] fp32 step {batch_shape}, {name} ({cfg.n_layer} layers), on the mesh "
+    log(f"[{tag}] fp32 step {batch_shape}, {name} ({cfg.n_layer} layers), on the mesh "
         f"vs off it on {card}: {json.dumps(out)}")
     if (max(out["loss_rel_err"], out["grad_norm_rel_err"]) > rel_tol
             or out["param_abs_err"] > 2 * plain.learning_rate):
@@ -1390,15 +1429,155 @@ def phase_mesh(card: str, train):
     run["parity"] = {
         "gpt2-124m": mesh_parity(card, "gpt2-124m", GPT2Config.gpt2_124m(**fp32), mesh),
         "llama-160m": mesh_parity(card, "llama-160m", LlamaConfig.llama_160m(**fp32), mesh)}
-    dist.destroy_process_group()
     return run
 
 
-def phase_ranks(card: str, world: int):
+def phase_moe_mesh(card: str, moe):
+    """GPT2MoEConfig() through ``TrainStep`` on a one-rank mesh that names
+    every axis of it, ep included (the same process group as phase 12):
+    24 / 12 / 12 launches and no plain call a step, step times beside the
+    moe phase's median, one step traced; then
+    one fp32 step of a 4-layer GPT2MoEConfig on the mesh against the same
+    step off it."""
+    from ray_tpu_torch.models.gpt2_moe import GPT2MoEConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MOE_MESH_AXES, device=DEVICE)
+    run = train_run(card, "moe_mesh", "gpt2-moe", GPT2MoEConfig(), MOE_TRAIN_BATCH,
+                    MOE_TRAIN_STEPS, profiled=True, mesh=mesh)
+    log(f"[moe_mesh] mesh {MOE_MESH_AXES}: steps {[round(x, 2) for x in run['step_ms']]} "
+        f"ms, median {run['median_step_ms']:.2f} ms beside the moe phase's median "
+        f"{moe['median_step_ms']:.2f} ms (x{run['median_step_ms'] / moe['median_step_ms']:.4f}) "
+        f"on {card}")
+    run["one_device_median_step_ms"] = moe["median_step_ms"]
+    run["parity"] = mesh_parity(
+        card, "gpt2-moe", GPT2MoEConfig(n_layer=MESH_PARITY_LAYERS, dtype=torch.float32),
+        mesh, tag="moe_mesh")
+    return run
+
+
+def pipeline_run(card: str, tag: str, name: str, cfg, mesh, batch_shape, steps: int,
+                 micro=None):
+    """``PipelineTrainStep(cfg, mesh)`` on the card, bf16 compute over fp32
+    master weights: one warm-up step, then ``steps`` timed steps (host
+    clock around a step and a synchronise) on a repeated batch with a
+    falling loss; launches per step must be the schedule's: each of this
+    stage's blocks runs the forward kernel twice per microbatch (forward
+    and remat) and each backward kernel once per microbatch, with no plain
+    attention call. Returns the run's numbers."""
+    from ray_tpu_torch.parallel.mesh import axis_size
+    from ray_tpu_torch.parallel.pipeline import PipelineTrainStep
+
+    pts = PipelineTrainStep(cfg, mesh, num_microbatches=micro, device=DEVICE)
+    state = pts.init(torch.Generator().manual_seed(0))
+    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, batch_shape)
+    batch = pts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = pts.step(state, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses, norms, step_ms, counts = [m["loss"].item()], [m["grad_norm"].item()], [], []
+    for _ in range(steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = pts.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    blocks = cfg.n_layer // axis_size(mesh, "pp")
+    want = (2 * blocks * pts.num_micro, blocks * pts.num_micro, blocks * pts.num_micro, 0)
+    median = statistics.median(step_ms)
+    log(f"[{tag}] {name} {dtype_name(cfg.dtype)} compute / fp32 params, batch {batch_shape}, "
+        f"{pts.num_micro} microbatches, {blocks} blocks on this stage: warm-up "
+        f"{warm_s:.2f} s, then steps {[round(x, 2) for x in step_ms]} ms (median "
+        f"{median:.2f} ms, {batch_shape[0] * batch_shape[1] / (median / 1e3):.0f} tokens/s "
+        f"over the mesh), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"on {card}")
+    log(f"[{tag}] loss {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(x, 4) for x in norms]}, launches and plain calls per step "
+        f"(fwd, dq, dkv, plain) {counts}, the schedule's {want}")
+    if any(c != want for c in counts):
+        raise AssertionError(f"launches and plain calls per step {counts}, expected {want}")
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    out = {"step_ms": step_ms, "median_step_ms": median, "losses": losses,
+           "grad_norms": norms, "num_microbatches": pts.num_micro,
+           "median_tokens_per_s": batch_shape[0] * batch_shape[1] / (median / 1e3),
+           "launches": [sum(c[i] for c in counts) for i in range(3)],
+           "plain_calls": sum(c[3] for c in counts), "launches_per_step": list(want[:3]),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del pts, state, batch, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_step(cfg, mesh, micro: int, device, batch_shape=PIPE_PARITY_BATCH):
+    """One fp32 ``PipelineTrainStep`` step from the weights of seed 2 on a
+    batch of seed 2: (loss, grad_norm, the whole parameters on the CPU)."""
+    from ray_tpu_torch.parallel.pipeline import PipelineTrainStep, full_state
+
+    pts = PipelineTrainStep(cfg, mesh, num_microbatches=micro, learning_rate=PIPE_LR,
+                            device=device)
+    state = pts.init(torch.Generator().manual_seed(2))
+    idx = np.random.default_rng(2).integers(0, cfg.vocab_size, batch_shape)
+    state, m = pts.step(state, pts.shard_batch({"idx": idx,
+                                                "targets": np.roll(idx, -1, axis=1)}))
+    return m["loss"].item(), m["grad_norm"].item(), full_state(pts, state)["params"]
+
+
+def pipeline_compare(tag: str, what: str, got, ref, rel_tol: float):
+    """``got`` against ``ref`` (each from :func:`pipeline_step`): loss and
+    grad_norm within ``rel_tol`` relative, parameters within 2 * lr."""
+    out = {"loss_rel_err": abs(got[0] - ref[0]) / abs(ref[0]),
+           "grad_norm_rel_err": abs(got[1] - ref[1]) / abs(ref[1]),
+           "param_abs_err": max((got[2][k] - ref[2][k]).abs().max().item() for k in ref[2]),
+           "loss": got[0], "grad_norm": got[1]}
+    log(f"[{tag}] fp32 pipeline step {PIPE_PARITY_BATCH}, {what}: {json.dumps(out)}")
+    if (max(out["loss_rel_err"], out["grad_norm_rel_err"]) > rel_tol
+            or out["param_abs_err"] > 2 * PIPE_LR):
+        raise AssertionError(f"{what}: the pipeline steps differ: {out}")
+    return out
+
+
+def phase_pipeline(card: str):
+    """``PipelineTrainStep`` on a one-rank (dp, pp) mesh: GPT-2-124M at
+    (16, 1024) bf16 over 2 microbatches, launches against the schedule's
+    count; then two fp32 steps of a 4-layer GPT-2-124M-width model: 1
+    microbatch against 4 on the card (the schedule must not change the
+    numbers), and the card against the port's own CPU step from the same
+    weights."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(PIPE_AXES, device=DEVICE)
+    run = pipeline_run(card, "pipeline", "gpt2-124m", GPT2Config.gpt2_124m(), mesh,
+                       PIPE_BATCH, PIPE_STEPS, PIPE_MICRO)
+    fp32 = GPT2Config.gpt2_124m(n_layer=MESH_PARITY_LAYERS, dtype=torch.float32)
+    one = pipeline_step(fp32, mesh, 1, DEVICE)
+    four = pipeline_step(fp32, mesh, 4, DEVICE)
+    host = pipeline_step(fp32, make_mesh(PIPE_AXES, device="cpu"), 1, "cpu")
+    run["parity"] = {
+        "micro_4_vs_1": pipeline_compare("pipeline", f"4 microbatches vs 1 on {card}",
+                                         four, one, MESH_REL_TOL),
+        "card_vs_cpu": pipeline_compare("pipeline", f"{card} vs the CPU, 1 microbatch",
+                                        one, host, MESH_REL_TOL)}
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_ranks(card: str, world: int, pipe_ref):
     """This rank's part of ``--ranks``: the one-device GPT-2-124M step on
     its card, then GPT-2-124M on each mesh of RANKS_TRAIN_MESHES, then the
-    fp32 mesh steps against the one-device step (RANKS_PARITY_MESHES)."""
+    fp32 mesh steps against the one-device step (RANKS_PARITY_MESHES); then
+    GPT-2-MoE alone on its card and on each mesh of RANKS_MOE_MESHES (fp32
+    parity too), the pipeline on each mesh of RANKS_PIPE_MESHES beside
+    ``pipe_ref``, the one-card run of :func:`pipeline_reference`, and
+    GPT-2 with 2 heads over tp = 4 (fault 3) against one card."""
     from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.models.gpt2_moe import GPT2MoEConfig
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.parallel.mesh import make_mesh
 
@@ -1432,10 +1611,76 @@ def phase_ranks(card: str, world: int):
                           ("llama-160m", LlamaConfig.llama_160m(**fp32))):
             out["parity"][f"{name} {json.dumps(axes)}"] = mesh_parity(
                 card, f"{name} on {axes}", cfg, mesh, RANKS_PARITY_BATCH, RANKS_REL_TOL)
+
+    # GPT-2-MoE: one card alone, then the ep meshes, each with fp32 parity
+    moe = train_run(card, "ranks", "gpt2-moe, one device", GPT2MoEConfig(),
+                    MOE_TRAIN_BATCH, RANKS_TRAIN_STEPS, profiled=True)
+    out["moe_one_device"] = {k: moe[k] for k in keep}
+    out["moe_meshes"] = {}
+    for axes in RANKS_MOE_MESHES:
+        mesh = make_mesh(axes, device=DEVICE)
+        run = train_run(card, "ranks", f"gpt2-moe on {axes}", GPT2MoEConfig(),
+                        MOE_TRAIN_BATCH, RANKS_TRAIN_STEPS, profiled=True, mesh=mesh)
+        log(f"[ranks] gpt2-moe on {axes} over {world} cards: median step "
+            f"{run['median_step_ms']:.2f} ms beside one card's {moe['median_step_ms']:.2f} "
+            f"ms (global batch {MOE_TRAIN_BATCH}), on {card} each")
+        out["moe_meshes"][json.dumps(axes)] = {k: run[k] for k in keep}
+        out["parity"][f"gpt2-moe {json.dumps(axes)}"] = mesh_parity(
+            card, f"gpt2-moe on {axes}", GPT2MoEConfig(**fp32), mesh, RANKS_PARITY_BATCH,
+            RANKS_REL_TOL, tag="ranks")
+
+    # the pipeline at GPT-2-124M width, beside and against one card's
+    ref = (pipe_ref["loss"], pipe_ref["grad_norm"], torch.load(pipe_ref["path"]))
+    out["pipeline_meshes"] = {}
+    for axes in RANKS_PIPE_MESHES:
+        mesh = make_mesh(axes, device=DEVICE)
+        run = pipeline_run(card, "ranks", f"gpt2-124m pipeline on {axes}",
+                           GPT2Config.gpt2_124m(), mesh, PIPE_BATCH, RANKS_TRAIN_STEPS)
+        log(f"[ranks] gpt2-124m pipeline on {axes} over {world} cards: median step "
+            f"{run['median_step_ms']:.2f} ms beside one card's "
+            f"{pipe_ref['median_step_ms']:.2f} ms (global batch {PIPE_BATCH}), on {card} each")
+        out["pipeline_meshes"][json.dumps(axes)] = run
+        got = pipeline_step(GPT2Config.gpt2_124m(**fp32), mesh, 2, DEVICE, RANKS_PARITY_BATCH)
+        out["parity"][f"pipeline {json.dumps(axes)}"] = pipeline_compare(
+            "ranks", f"on {axes} vs one card", got, ref, RANKS_REL_TOL)
+    del ref
+
+    # fault 3 on the cards: a head computed by tp / n_head ranks alike
+    axes, heads = RANKS_FAULT3
+    out["parity"][f"gpt2-124m-width {heads} heads {json.dumps(axes)}"] = mesh_parity(
+        card, f"gpt2-124m width, {heads} heads, on {axes}",
+        GPT2Config.gpt2_124m(n_head=heads, use_flash_attention=False, **fp32),
+        make_mesh(axes, device=DEVICE), RANKS_PARITY_BATCH, RANKS_REL_TOL, tag="ranks")
     return out
 
 
-def _rank_main(rank: int, world: int, port: int, card: str, device: str, results):
+def pipeline_reference(card: str, path: str):
+    """One card alone, before ``--ranks`` starts its processes: the
+    pipeline's GPT-2-124M run at dp 1 x pp 1 (its median step is what the
+    pp meshes are timed beside) and the fp32 4-layer step (1 microbatch)
+    they are held to, its parameters saved to ``path``. Starts and ends its
+    own one-process NCCL group."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(PIPE_AXES, device=DEVICE)
+    run = pipeline_run(card, "ranks", "gpt2-124m pipeline, one card",
+                       GPT2Config.gpt2_124m(), mesh, PIPE_BATCH, RANKS_TRAIN_STEPS,
+                       PIPE_MICRO)
+    loss, norm, params = pipeline_step(
+        GPT2Config.gpt2_124m(n_layer=MESH_PARITY_LAYERS, dtype=torch.float32), mesh, 1,
+        DEVICE, RANKS_PARITY_BATCH)
+    torch.save(params, path)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"median_step_ms": run["median_step_ms"], "step_ms": run["step_ms"],
+            "loss": loss, "grad_norm": norm, "path": path}
+
+
+def _rank_main(rank: int, world: int, port: int, card: str, device: str, results,
+               pipe_ref):
     """One process of ``--ranks``: its card, NCCL over ``tcp://localhost``."""
     import torch.distributed as dist
 
@@ -1451,7 +1696,7 @@ def _rank_main(rank: int, world: int, port: int, card: str, device: str, results
         dist.init_process_group("nccl" if device == "cuda" else "gloo",
                                 init_method=f"tcp://localhost:{port}", rank=rank,
                                 world_size=world, timeout=timedelta(seconds=300))
-        results.put((rank, "ok", phase_ranks(card, world)))
+        results.put((rank, "ok", phase_ranks(card, world, pipe_ref)))
         dist.destroy_process_group()
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))
@@ -1469,14 +1714,22 @@ def main_ranks(world: int) -> int:
     sys.path.insert(0, str(ROOT))
     import ray_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    import tempfile
+
+    from ray_tpu_torch._private.device import set_fp32_policy
+
+    set_fp32_policy()
     card = phase_device()
     phase_build()
+    scratch = tempfile.TemporaryDirectory()
+    pipe_ref = pipeline_reference(card, str(Path(scratch.name) / "pipeline_ref.pt"))
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, args=(r, world, port, card, DEVICE, results))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, port, card, DEVICE, results, pipe_ref))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1498,6 +1751,8 @@ def main_ranks(world: int) -> int:
             if p.is_alive():
                 p.kill()
             p.join()
+        scratch.cleanup()
+    got[0]["pipeline_one_card"] = {k: v for k, v in pipe_ref.items() if k != "path"}
     log(f"[ranks] {json.dumps(got[0])}")
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -1528,6 +1783,9 @@ def main() -> int:
     moe = phase_moe(card)
     head_dims = phase_head_dims(card)
     mesh = phase_mesh(card, train)
+    moe_mesh = phase_moe_mesh(card, moe)
+    pipeline = phase_pipeline(card)
+    torch.distributed.destroy_process_group()
 
     fwd_head = next(c for c in fwd_cases if "ms" in c and c["shape"] == list(HEADLINE[0])
                     and c["dtype"] == dtype_name(HEADLINE[1]))
@@ -1540,7 +1798,8 @@ def main() -> int:
                    "llama_train": llama["train"]["plain_calls"],
                    "llama_serve": llama["serve_plain_calls"],
                    "spec": spec["plain_calls"], "moe_train": moe["plain_calls"],
-                   "mesh": mesh["plain_calls"]}
+                   "mesh": mesh["plain_calls"], "moe_mesh": moe_mesh["plain_calls"],
+                   "pipeline": pipeline["plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -1555,7 +1814,9 @@ def main() -> int:
                              "llama_serve": llama["serve_launches"],
                              "spec": spec["launches"],
                              "moe_train": moe["launches"][0],
-                             "mesh": mesh["launches"][0]},
+                             "mesh": mesh["launches"][0],
+                             "moe_mesh": moe_mesh["launches"][0],
+                             "pipeline": pipeline["launches"][0]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -1586,7 +1847,9 @@ def main() -> int:
                                  for path, run in (("train", train),
                                                    ("llama_train", llama["train"]),
                                                    ("moe_train", moe),
-                                                   ("mesh", mesh))},
+                                                   ("mesh", mesh),
+                                                   ("moe_mesh", moe_mesh),
+                                                   ("pipeline", pipeline))},
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
             "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
                                              if c["dtype"] == dt for o in outputs)
@@ -1597,7 +1860,8 @@ def main() -> int:
             "bound_by": bwd_head[kernel]["bound_by"],
             "library_ms": bwd_head["library_ms"],
             "plain_calls_by_path": {path: plain_calls[path] for path in
-                                    ("train", "llama_train", "moe_train", "mesh")},
+                                    ("train", "llama_train", "moe_train", "mesh",
+                                     "moe_mesh", "pipeline")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -1618,6 +1882,8 @@ def main() -> int:
     log(f"[serve] {json.dumps(serve)}")
     log(f"[head_dims] {json.dumps(head_dims)}")
     log(f"[mesh] {json.dumps(mesh)}")
+    log(f"[moe_mesh] {json.dumps(moe_mesh)}")
+    log(f"[pipeline] {json.dumps(pipeline)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

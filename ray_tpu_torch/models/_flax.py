@@ -11,8 +11,10 @@ RMSNorm ``weight`` map by name; a raw array parameter (the MoE experts'
 On a mesh each rank's module holds its tp shard of a parameter
 (:func:`tp_layout`: the rows of one dimension it holds, which for GPT-2's
 fused ``c_attn`` are this rank's heads of each of q, k and v, not one
-block), and FSDP2 holds its fsdp shard of that as a DTensor. Loading
-slices the whole tensor both ways on each rank, with no communication;
+block), an MoE layer's expert stacks also the experts of its ep rank
+(:func:`ep_layout`: rows ``[ep_rank · E/ep, (ep_rank+1) · E/ep)`` of dim
+0), and FSDP2 holds its fsdp shard of that as a DTensor. Loading slices
+the whole tensor every way on each rank, with no communication;
 :func:`full_state` gathers it back.
 """
 
@@ -104,21 +106,37 @@ def flax_path(model: nn.Module, name: str) -> str:
 
 
 def tp_layout(model: nn.Module, name: str):
-    """The ``TPLayout`` of parameter ``name``, from the layer that holds it;
-    None where every tp rank holds it whole (norms, ``wpe``, the bias of a
-    row-parallel layer, every parameter without tp)."""
+    """The ``TPLayout`` of parameter ``name``, from the layer that holds it
+    (its ``tp_layouts`` by leaf name where it keeps one per parameter, as
+    an MoE layer does); None where every tp rank holds it whole (norms,
+    ``wpe``, the bias of a row-parallel layer, every parameter without
+    tp)."""
     module, _, leaf = _holder(model, name)
+    per_leaf = getattr(module, "tp_layouts", None)
+    if per_leaf is not None:
+        return per_leaf.get(leaf)
     layout = getattr(module, "tp_layout", None)
     if layout is None or (leaf == "bias" and layout.dim != 0):
         return None
     return layout
 
 
+def ep_layout(model: nn.Module, name: str):
+    """The layout of the experts an ep rank holds of parameter ``name`` (a
+    ``TPLayout`` over ep), or None where every ep rank holds it whole."""
+    module, _, leaf = _holder(model, name)
+    return getattr(module, "ep_layouts", {}).get(leaf)
+
+
+def _layouts(model: nn.Module, name: str):
+    return [l for l in (tp_layout(model, name), ep_layout(model, name)) if l is not None]
+
+
 def full_shape(model: nn.Module, name: str, p: torch.Tensor):
-    """The whole shape of parameter ``name`` of which ``p`` is a tp shard."""
+    """The whole shape of parameter ``name`` of which ``p`` is a tp (and ep)
+    shard."""
     shape = list(p.shape)
-    layout = tp_layout(model, name)
-    if layout is not None:
+    for layout in _layouts(model, name):
         shape[layout.dim] = layout.full
     return tuple(shape)
 
@@ -131,11 +149,10 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
 def shard_like(model: nn.Module, name: str, full: torch.Tensor,
                like: torch.Tensor) -> torch.Tensor:
     """The whole tensor ``full`` of parameter ``name`` held as ``like`` (the
-    parameter or a moment of it) is held on this rank: its tp rows, on
-    ``like``'s device, and for an FSDP2 DTensor its fsdp shard (a DTensor
-    with ``like``'s placement). No communication."""
-    layout = tp_layout(model, name)
-    if layout is not None:
+    parameter or a moment of it) is held on this rank: its tp rows (and ep
+    experts), on ``like``'s device, and for an FSDP2 DTensor its fsdp shard
+    (a DTensor with ``like``'s placement). No communication."""
+    for layout in _layouts(model, name):
         full = full.index_select(layout.dim, layout.index)
     full = full.to(like.device)
     if isinstance(like, DTensor):
@@ -144,23 +161,30 @@ def shard_like(model: nn.Module, name: str, full: torch.Tensor,
     return full
 
 
-def gather_full(model: nn.Module, name: str, t: torch.Tensor, tp) -> torch.Tensor:
-    """The whole fp32 tensor of parameter ``name`` from every rank's shard
-    ``t`` (the parameter or a moment of it), on every rank, on the CPU:
-    FSDP2's all-gather over fsdp, then a sum over tp of each owner's rows
-    written into zeros. A collective: every rank calls it."""
-    t = t.full_tensor() if isinstance(t, DTensor) else t
-    t = t.detach().float()
-    layout = tp_layout(model, name)
-    if layout is None:
-        return t.cpu()
+def _assemble(t: torch.Tensor, layout, group) -> torch.Tensor:
+    """The whole tensor from every rank's rows ``t`` of ``layout``: each
+    owner's rows written into zeros, summed over ``group``."""
     shape = list(t.shape)
     shape[layout.dim] = layout.full
     full = t.new_zeros(shape)
     if layout.owner:
         full.index_copy_(layout.dim, layout.index.to(t.device), t)
-    dist.all_reduce(full, group=tp.group)
-    return full.cpu()
+    dist.all_reduce(full, group=group.group)
+    return full
+
+
+def gather_full(model: nn.Module, name: str, t: torch.Tensor, tp, ep=None) -> torch.Tensor:
+    """The whole fp32 tensor of parameter ``name`` from every rank's shard
+    ``t`` (the parameter or a moment of it), on every rank, on the CPU:
+    FSDP2's all-gather over fsdp, then the tp rows and the ep experts
+    reassembled (a sum over each group of each owner's rows written into
+    zeros). A collective: every rank calls it."""
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    t = t.detach().float()
+    for layout, group in ((tp_layout(model, name), tp), (ep_layout(model, name), ep)):
+        if layout is not None:
+            t = _assemble(t, layout, group)
+    return t.cpu()
 
 
 def flax_tensors(model: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -251,6 +275,6 @@ def full_state(ts, state: Dict[str, Any]) -> Dict[str, Any]:
     for name, p in model.named_parameters():
         path = flax_path(model, name)
         for key, t in (("params", p), ("mu", opt["mu"][name]), ("nu", opt["nu"][name])):
-            full = gather_full(model, name, t, ts.tp)
+            full = gather_full(model, name, t, ts.tp, ts.ep)
             out[key][path] = full.T if path.endswith("kernel") else full
     return out

@@ -35,7 +35,10 @@ column-parallel ``c_attn`` (this rank's heads of q, of k and of v) and
 ``c_fc``, row-parallel ``c_proj`` (partial sums all-reduced before the
 replicated bias), a vocab-parallel ``wte`` whose tied head gives this
 rank's slice of the logits (:func:`vocab_parallel_loss` takes them), and
-LayerNorms and ``wpe`` replicated. ``config.attn_fn`` replaces the
+LayerNorms and ``wpe`` replicated. Where tp is a multiple of the head
+count, tp / n_head ranks compute the same head (its ``c_attn`` rows held
+alike, as ``tp_copies``) and each feeds its own C / tp of the head's
+output to ``c_proj``'s plain row split. ``config.attn_fn`` replaces the
 attention (ring attention over sp), and ``pos_offset`` shifts the
 positions to the rank's place in the sequence. Without a group it is the
 one-device module, operation for operation.
@@ -106,8 +109,8 @@ class Dense(nn.Linear):
     ``tp_index``; the partial products are summed over tp, then the whole
     bias is added). The input of a column-parallel layer must come through
     ``copy_to_tp``. ``tp_copies`` is how many tp ranks hold the same rows
-    (GQA's KV heads where tp exceeds their count), whose gradients the
-    step sums."""
+    (GQA's KV heads, or GPT-2's heads, where tp exceeds their count),
+    whose gradients the step sums."""
 
     def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device=None,
                  bias: bool = True, *, tp: Optional[TPGroup] = None,
@@ -188,11 +191,25 @@ def local_heads(n_head: int, tp: Optional[TPGroup]) -> Tuple[int, int]:
     return tp.rank * per, (tp.rank + 1) * per
 
 
+def head_split(n_head: int, tp: Optional[TPGroup]) -> Tuple[int, int, int]:
+    """([first, stop) of the heads a tp rank computes, how many tp ranks
+    compute each of them). Where tp divides the head count, the rank's
+    whole heads (:func:`local_heads`); where tp is a multiple of it, one
+    head, computed by tp / n_head ranks alike, each of which feeds its own
+    C / tp of the head's output to the row-parallel projection. Neither
+    dividing the other raises ``ValueError``."""
+    if tp is None or n_head % tp.size == 0 or tp.size % n_head:
+        return (*local_heads(n_head, tp), 1)
+    copies = tp.size // n_head
+    head = tp.rank // copies
+    return head, head + 1, copies
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None, tp: Optional[TPGroup] = None):
         super().__init__()
         C = cfg.n_embd
-        first, stop = local_heads(cfg.n_head, tp)
+        first, stop, copies = head_split(cfg.n_head, tp)
         self.tp = tp
         self.n_head = stop - first
         self.head_dim = C // cfg.n_head
@@ -200,7 +217,16 @@ class CausalSelfAttention(nn.Module):
         # this rank's heads of q, of k and of v: the same rows of each third
         rows = torch.arange(first * self.head_dim, stop * self.head_dim)
         self.c_attn = Dense(C, 3 * C, cfg.dtype, device, tp=tp, tp_dim=0,
-                            tp_index=torch.cat([rows, rows + C, rows + 2 * C]))
+                            tp_index=torch.cat([rows, rows + C, rows + 2 * C]),
+                            tp_copies=copies)
+        # a head that several ranks compute: each takes its own contiguous
+        # C / tp of the head's output, as c_proj's plain row split has it
+        self.out_cols = None
+        if copies > 1:
+            width = C // tp.size
+            start = (tp.rank % copies) * width
+            self.out_cols = (start, start + width)
+            rows = torch.arange(tp.rank * width, (tp.rank + 1) * width)
         self.c_proj = Dense(C, C, cfg.dtype, device, tp=tp, tp_dim=1, tp_index=rows)
 
     def qkv(self, x):
@@ -211,8 +237,10 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x):
         B, T, _ = x.shape
-        y = self.attention(*self.qkv(x))
-        return self.c_proj(y.reshape(B, T, self.n_head * self.head_dim))
+        y = self.attention(*self.qkv(x)).reshape(B, T, self.n_head * self.head_dim)
+        if self.out_cols is not None:
+            y = y[..., self.out_cols[0]:self.out_cols[1]]
+        return self.c_proj(y)
 
 
 class MLP(nn.Module):

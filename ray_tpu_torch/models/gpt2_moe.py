@@ -15,6 +15,13 @@ The MoE blocks' aux losses are summed and returned beside the logits
 the port's GPT-2 (the flax model does not remat its MoE blocks; the
 recompute gives the same numbers and keeps a training step's memory at
 GPT-2's).
+
+On a mesh (``parallel/train_step.py``) the module is built with this
+rank's tp, ep and sp groups: GPT-2's Megatron layout for the attention,
+the dense blocks, the embedding and the head, and each MoE layer's experts
+split over ep and their hidden width over tp (``ops/moe.py``), routing over
+the global sequence under sp. ``GPT2_MOE_SHARDING_RULES`` are the MoE
+patterns, then GPT-2's, the MoE ones first as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,15 +36,19 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import _flax
-from ray_tpu_torch.models.gpt2 import (
+from ray_tpu_torch.models.gpt2 import (  # noqa: F401
     GPT2,
+    GPT2_SHARDING_PATTERNS,
     Block,
     CausalSelfAttention,
     GPT2Config,
     LayerNorm,
     loss_fn,
+    vocab_parallel_loss,
 )
-from ray_tpu_torch.ops.moe import MoE, MoEConfig
+from ray_tpu_torch.ops.moe import MOE_SHARDING_PATTERNS, MoE, MoEConfig
+from ray_tpu_torch.parallel._collectives import TPGroup
+from ray_tpu_torch.parallel.mesh import P, ShardingRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +71,14 @@ class GPT2MoEConfig(GPT2Config):
 
 
 class MoEBlock(nn.Module):
-    def __init__(self, cfg: GPT2MoEConfig, device=None):
+    def __init__(self, cfg: GPT2MoEConfig, device=None, tp: Optional[TPGroup] = None,
+                 ep: Optional[TPGroup] = None, sp: Optional[TPGroup] = None):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd, cfg.dtype, device)
-        self.attn = CausalSelfAttention(cfg, device)
+        self.attn = CausalSelfAttention(cfg, device, tp)
         self.ln_2 = LayerNorm(cfg.n_embd, cfg.dtype, device)
-        self.moe = MoE(cfg.n_embd, 4 * cfg.n_embd, cfg.moe, cfg.dtype, device)
+        self.moe = MoE(cfg.n_embd, 4 * cfg.n_embd, cfg.moe, cfg.dtype, device,
+                       tp=tp, ep=ep, sp=sp)
 
     def forward(self, x):
         """x -> (x, this block's aux loss)."""
@@ -79,18 +92,26 @@ class DenseBlock(Block):
 
 
 class GPT2MoE(GPT2):
-    """GPT-2-MoE on ``device`` (default CUDA). ``forward`` gives the logits
-    and the summed aux loss."""
+    """GPT-2-MoE on ``device`` (default CUDA); with ``tp``, ``ep`` and
+    ``sp``, this rank's shard of it. ``forward`` gives the logits (this tp
+    rank's vocabulary slice) and the summed aux loss."""
 
     config: GPT2MoEConfig
 
+    def __init__(self, config: GPT2MoEConfig, device=None, tp: Optional[TPGroup] = None,
+                 ep: Optional[TPGroup] = None, sp: Optional[TPGroup] = None):
+        self.ep, self.sp = ep, sp   # read by _block while GPT2 builds the blocks
+        super().__init__(config, device, tp)
+
     def _block(self, i: int, device) -> nn.Module:
         cfg = self.config
-        return MoEBlock(cfg, device) if cfg.is_moe(i) else DenseBlock(cfg, device)
+        if cfg.is_moe(i):
+            return MoEBlock(cfg, device, self.tp, self.ep, self.sp)
+        return DenseBlock(cfg, device, self.tp)
 
-    def forward(self, idx):
+    def forward(self, idx, pos_offset: int = 0):
         B, T = idx.shape
-        pos = torch.arange(T, device=idx.device)
+        pos = torch.arange(T, device=idx.device) + pos_offset
         x = self.wte(idx) + self.wpe(pos)[None]
         remat = self.config.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=idx.device)
@@ -137,3 +158,8 @@ def load_flax_params(model: GPT2MoE, params: Dict[str, Any]) -> GPT2MoE:
 
 
 load_flax_state = _flax.load_flax_state
+
+
+# MoE rules first: they are more specific than the dense fallbacks.
+GPT2_MOE_SHARDING_RULES = ShardingRules(
+    MOE_SHARDING_PATTERNS + GPT2_SHARDING_PATTERNS, default=P())

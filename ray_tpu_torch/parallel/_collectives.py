@@ -4,18 +4,25 @@ written out for the port's eager ranks.
   ppermute(x, group, shift)   ``jax.lax.ppermute`` on a ring: rank r sends
                               to r + shift and receives from r - shift; the
                               backward sends the gradient the other way
-  copy_to_tp(x, tp)           Megatron's "f": identity forward, all-reduce
-                              of the gradient over tp (where a replicated
-                              activation enters a column-parallel layer)
-  reduce_from_tp(x, tp)       Megatron's "g": all-reduce forward, identity
+  copy_to(x, group)           Megatron's "f": identity forward, all-reduce
+                              of the gradient over the group (where a
+                              replicated activation enters a layer sharded
+                              over tp, or the experts sharded over ep)
+  reduce_from(x, group)       Megatron's "g": all-reduce forward, identity
                               backward (the partial sums of a row-parallel
-                              layer, of a vocab-parallel lookup or softmax)
+                              layer, of a vocab-parallel lookup or softmax,
+                              of the experts' combine)
+  copy_to_tp, reduce_from_tp  the same pair, named for the tp layers
   all_reduce_mean(x, group)   a metric's mean over a group, no gradient
+  send_to / recv_from         a pipeline stage's hand-off to a neighbour
+                              (plain point-to-point, no gradient: the
+                              pipeline's schedule runs its backward itself)
 
 Each takes ``None`` for a group of one rank and is then the identity, so a
 model built without tensor parallelism runs exactly the one-device code.
 A tensor-parallel layer keeps a :class:`TPLayout` of the rows it holds,
-which loading, gathering and the gradient norm read.
+which loading, gathering and the gradient norm read; an expert stack keeps
+one of the experts it holds over ep too.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class TPGroup:
-    """This rank's tensor-parallel group: its process group, size and rank."""
+    """This rank's group on one mesh axis (tp, ep or sp): its process
+    group, size and rank."""
 
     group: object
     size: int
     rank: int
+
 
 
 def split_range(n: int, parts: int, index: int) -> Tuple[int, int]:
@@ -107,7 +116,7 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-class _CopyToTP(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -118,7 +127,7 @@ class _CopyToTP(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return _all_reduce(x, group)
@@ -128,14 +137,18 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
-def copy_to_tp(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
-    """Identity; the gradient is summed over the tp ranks."""
-    return x if tp is None else _CopyToTP.apply(x, tp.group)
+def copy_to(x: torch.Tensor, group: Optional[TPGroup]) -> torch.Tensor:
+    """Identity; the gradient is summed over the ranks of ``group``."""
+    return x if group is None else _CopyTo.apply(x, group.group)
 
 
-def reduce_from_tp(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
-    """The sum over the tp ranks; the gradient passes unchanged."""
-    return x if tp is None else _ReduceFromTP.apply(x, tp.group)
+def reduce_from(x: torch.Tensor, group: Optional[TPGroup]) -> torch.Tensor:
+    """The sum over the ranks of ``group``; the gradient passes unchanged."""
+    return x if group is None else _ReduceFrom.apply(x, group.group)
+
+
+copy_to_tp = copy_to
+reduce_from_tp = reduce_from
 
 
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -143,3 +156,17 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     out = x.detach().clone()
     dist.all_reduce(out, group=group)
     return out / dist.get_world_size(group)
+
+
+def send_to(x: torch.Tensor, group, peer: int) -> None:
+    """Send ``x`` to rank ``peer`` of ``group`` (blocking on gloo; queued on
+    the stream under NCCL)."""
+    dist.send(x.contiguous(), dist.get_global_rank(group, peer), group=group)
+
+
+def recv_from(shape, dtype, device, group, peer: int) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` received from rank ``peer`` of
+    ``group``."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    dist.recv(out, dist.get_global_rank(group, peer), group=group)
+    return out

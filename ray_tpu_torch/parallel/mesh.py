@@ -12,7 +12,10 @@ package's:
   fsdp  parameter and optimizer sharding (ZeRO-3), also carries batch rows
   tp    Megatron tensor parallel over heads and hidden widths
   sp    sequence parallel (ring attention rides this axis)
-  ep    expert parallel (MoE) and pp pipeline stages: not ported yet
+  ep    expert parallel: an MoE layer's experts split over it, tokens
+        replicated over it (models/gpt2_moe.py, ops/moe.py)
+  pp    pipeline stages: the stacked blocks split over it
+        (parallel/pipeline.py); ``TrainStep`` replicates over it
 
 A spec is the port's own :class:`PartitionSpec`, a tuple of axis names per
 tensor dimension; the port never imports ``jax.sharding``. The sharding
@@ -193,23 +196,40 @@ def local_slice_info() -> dict:
     }
 
 
+def _regrouped(mesh: DeviceMesh, fixed: Sequence[str]) -> DeviceMesh:
+    """The mesh's ranks regrouped as (*fixed, replicate, fsdp), replicate
+    being every other axis, sliced to this rank's (replicate, fsdp) mesh.
+    Built with the public ``DeviceMesh`` constructor over every rank, so
+    every rank creates the same process groups in the same order."""
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh
+    for a in (*fixed, "fsdp"):
+        if a not in names:
+            ranks, names = ranks.unsqueeze(-1), names + [a]
+    keep = (*fixed, "fsdp")
+    rest = [i for i, a in enumerate(names) if a not in keep]
+    order = [names.index(a) for a in fixed] + rest + [names.index("fsdp")]
+    sizes = [ranks.size(names.index(a)) for a in fixed]
+    grid = ranks.permute(order).reshape(*sizes, -1, ranks.size(names.index("fsdp")))
+    full = DeviceMesh(mesh.device_type, grid,
+                      mesh_dim_names=(*fixed, "replicate", "fsdp"))
+    return full["replicate", "fsdp"]
+
+
 def data_parallel_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The 2-D (replicate, fsdp) mesh that FSDP2 reduces gradients over, for
     this rank's tp coordinate. The JAX loss is the mean over the global
     batch, so every gradient is averaged over dp, fsdp and sp, while
     parameters are sharded over fsdp only: replicate is every axis but tp
-    and fsdp. Built with the public ``DeviceMesh`` constructor over the
-    same ranks regrouped as (tp, replicate, fsdp), then sliced, so every
-    rank creates the same process groups in the same order."""
-    names = list(mesh.mesh_dim_names)
-    ranks = mesh.mesh
-    for a in ("tp", "fsdp"):
-        if a not in names:
-            ranks, names = ranks.unsqueeze(-1), names + [a]
-    rest = [i for i, a in enumerate(names) if a not in ("tp", "fsdp")]
-    order = [names.index("tp")] + rest + [names.index("fsdp")]
-    tp, fsdp = ranks.size(names.index("tp")), ranks.size(names.index("fsdp"))
-    grid = ranks.permute(order).reshape(tp, -1, fsdp)
-    full = DeviceMesh(mesh.device_type, grid,
-                      mesh_dim_names=("tp", "replicate", "fsdp"))
-    return full["replicate", "fsdp"]
+    and fsdp. Over ep and pp the batch, and so every gradient but an
+    expert's, is the same on each rank, and the mean leaves it as it is."""
+    return _regrouped(mesh, ("tp",))
+
+
+def expert_data_parallel_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The (replicate, fsdp) mesh of an MoE layer's expert stacks, for this
+    rank's tp and ep coordinates: replicate is every axis but tp, ep and
+    fsdp. An ep rank holds experts of its own, so their gradients are
+    averaged over the data ranks that hold the same experts, never over
+    ep."""
+    return _regrouped(mesh, ("tp", "ep"))

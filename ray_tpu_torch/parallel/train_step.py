@@ -1,6 +1,6 @@
 """The training step: the port of ``ray_tpu/parallel/train_step.py``
-``TrainStep``, on one CUDA card for every model family of the port, and on
-a device mesh of dp, fsdp, tp and sp for GPT-2 and Llama.
+``TrainStep``, on one CUDA card and on a device mesh of dp, fsdp, tp, sp
+and ep, for every model family of the port.
 
 The config's type picks the family, as ``model_for_mesh`` does in the JAX
 package: ``GPT2Config`` trains GPT-2, ``GPT2MoEConfig`` GPT-2-MoE (whose
@@ -39,18 +39,31 @@ JAX step on the same mesh:
   tp        Megatron layers on local tensors (``models/gpt2.py``,
             ``models/llama.py``) with the collectives of
             ``parallel/_collectives.py``, a vocab-parallel embedding, head
-            and loss
+            and loss (where tp is a multiple of GPT-2's head count,
+            tp / n_head ranks compute each head alike)
   sp        ring attention over the sp ranks (``ops/ring_attention.py``)
             in place of the model's attention, positions offset by the
-            rank's place in the sequence
+            rank's place in the sequence; GPT-2-MoE routes over the
+            global sequence
+  ep        GPT-2-MoE's experts split over the ep ranks, tokens
+            replicated over them (``ops/moe.py``); each MoE layer under
+            its own ``fully_shard`` on the data ranks of its ep coordinate
+            (``mesh.expert_data_parallel_mesh``)
+  pp, other axes named by no rule: replicated, as under JAX's
+            ``batch_sharding`` (``PipelineTrainStep`` in
+            ``parallel/pipeline.py`` pipelines over pp)
 
 The backward is ``loss.backward()`` (``torch.autograd.grad`` cannot see
-FSDP2's sharded parameters); gradients of KV heads that several tp ranks
-hold are summed over them, and the global norm counts each element once
-(tp-replicated gradients from tp rank 0 only). The update is the same
-optax chain on each rank's local shards. The reported loss is the mean
-over every rank. Not ported yet (ROADMAP Queue A item 8b): GPT-2-MoE on a
-mesh and the ep and pp axes, which raise ``NotImplementedError``.
+FSDP2's sharded parameters), GPT-2-MoE's aux loss added with its gradient
+taken sp times (one global value whose gradient each sp rank carries only
+for its own tokens); gradients of rows that several tp ranks hold (a GQA
+KV head, a GPT-2 head at tp > n_head) are summed over them, and the
+global norm counts each element once (tp-replicated gradients from tp rank
+0 only, every gradient but an expert stack's from ep rank 0 only). The
+update is the same optax chain on each rank's local shards. The reported
+loss is the mean over every rank. The only refusals are JAX's own
+(``ValueError``): a tp that does not fit the heads, an ep that does not
+divide the experts.
 """
 
 from __future__ import annotations
@@ -114,6 +127,32 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     return out, norm
 
 
+def adamw_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
+                  mu: List[torch.Tensor], nu: List[torch.Tensor], count: int, *,
+                  learning_rate: float, beta2: float, weight_decay: float) -> None:
+    """optax's ``adamw(lr, b1=0.9, b2=beta2, eps=1e-8, weight_decay,
+    mask=ndim > 1)`` step ``count`` (counted from 1), in place on the
+    parameters and moments (this rank's local shards of FSDP2 DTensors)."""
+    mu = [_flax.local_tensor(t) for t in mu]
+    nu = [_flax.local_tensor(t) for t in nu]
+    p = [_flax.local_tensor(t) for t in params]
+    g, b2 = grads, beta2
+    with torch.no_grad():
+        torch._foreach_mul_(mu, ADAM_B1)
+        torch._foreach_add_(mu, g, alpha=1 - ADAM_B1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+        den = torch._foreach_div(nu, 1 - b2 ** count)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, ADAM_EPS)
+        upd = torch._foreach_div(mu, 1 - ADAM_B1 ** count)
+        torch._foreach_div_(upd, den)
+        decayed = [i for i, x in enumerate(p) if x.ndim > 1]
+        torch._foreach_add_([upd[i] for i in decayed],
+                            [p[i] for i in decayed], alpha=weight_decay)
+        torch._foreach_add_(p, upd, alpha=-learning_rate)
+
+
 def family_of(model_cfg):
     """(model module, model class) a config trains, by its type:
     ``gpt2_moe``/``GPT2MoE``, ``llama``/``Llama`` or ``gpt2``/``GPT2``
@@ -131,50 +170,52 @@ def family_of(model_cfg):
 
 
 def check_mesh(model_cfg, mesh) -> None:
-    """Refuse what the port does not train on a mesh yet (item 8b), and a
-    tp that does not split the model's heads (``ValueError``), before any
-    collective runs."""
-    if isinstance(model_cfg, gpt2_moe.GPT2MoEConfig):
-        raise NotImplementedError(
-            "GPT-2-MoE on a mesh (its ep all-to-all and sharding rules) comes "
-            "with ROADMAP Queue A item 8b")
-    for axis in ("ep", "pp"):
-        if _mesh.axis_size(mesh, axis) > 1:
-            raise NotImplementedError(
-                f"the {axis} axis comes with ROADMAP Queue A item 8b")
+    """Refuse, before any collective runs, what JAX's shardings refuse too
+    (``ValueError``): a tp that does not fit the model's heads, an ep that
+    does not divide an MoE model's experts."""
     family, _ = family_of(model_cfg)
     tp = _mesh.axis_size(mesh, "tp")
     fake = TPGroup(None, tp, 0) if tp > 1 else None
-    gpt2.local_heads(model_cfg.n_head, fake)
     if family is llama:
+        gpt2.local_heads(model_cfg.n_head, fake)
         llama.local_kv_heads(model_cfg.n_head, model_cfg.n_kv_head, fake)
+    else:
+        gpt2.head_split(model_cfg.n_head, fake)
+    ep = _mesh.axis_size(mesh, "ep")
+    if family is gpt2_moe and model_cfg.moe.num_experts % ep:
+        raise ValueError(f"ep = {ep} does not divide num_experts = "
+                         f"{model_cfg.moe.num_experts}")
 
 
-def tp_group(mesh) -> Optional[TPGroup]:
-    """This rank's tp group, or None where tp is absent or of size 1."""
-    group = _mesh.axis_group(mesh, "tp")
-    return None if group is None else TPGroup(group, _mesh.axis_size(mesh, "tp"),
-                                              _mesh.axis_index(mesh, "tp"))
+def axis_group(mesh, axis: str) -> Optional[TPGroup]:
+    """This rank's group on ``axis``, or None where the axis is absent or
+    of size 1."""
+    group = _mesh.axis_group(mesh, axis)
+    return None if group is None else TPGroup(group, _mesh.axis_size(mesh, axis),
+                                              _mesh.axis_index(mesh, axis))
 
 
 def model_for_mesh(cfg, mesh, device=None):
     """This rank's module of ``cfg``'s family on ``mesh``: ring attention
-    over the sp ranks iff sp > 1, this tp rank's shard of every layer;
-    torch's default initialisation."""
+    over the sp ranks iff sp > 1, this tp rank's shard of every layer, and
+    for GPT-2-MoE this ep rank's experts with routing over the global
+    sequence; torch's default initialisation."""
     check_mesh(cfg, mesh)
-    _, model_cls = family_of(cfg)
+    family, model_cls = family_of(cfg)
     sp = _mesh.axis_group(mesh, "sp")
     if sp is not None:
         cfg = dataclasses.replace(
             cfg, attn_fn=functools.partial(ring_causal_attention, group=sp))
-    return model_cls(cfg, device=device, tp=tp_group(mesh))
+    if family is gpt2_moe:
+        return model_cls(cfg, device=device, tp=axis_group(mesh, "tp"),
+                         ep=axis_group(mesh, "ep"), sp=axis_group(mesh, "sp"))
+    return model_cls(cfg, device=device, tp=axis_group(mesh, "tp"))
 
 
 def default_rules_for(cfg) -> _mesh.ShardingRules:
     """The family's sharding rules."""
     if isinstance(cfg, gpt2_moe.GPT2MoEConfig):
-        raise NotImplementedError("GPT-2-MoE's sharding rules come with ROADMAP "
-                                  "Queue A item 8b")
+        return gpt2_moe.GPT2_MOE_SHARDING_RULES
     if isinstance(cfg, llama.LlamaConfig):
         return llama.LLAMA_SHARDING_RULES
     return gpt2.GPT2_SHARDING_RULES
@@ -215,7 +256,7 @@ class TrainStep:
         self.family, self._model_cls = family_of(model_cfg)
         self._is_moe = self.family is gpt2_moe
         self.mesh = mesh
-        self.tp = None
+        self.tp = self.ep = None
         self._token_scale = self._example_scale = 1
         n_devices = 1
         if mesh is not None:
@@ -224,11 +265,15 @@ class TrainStep:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device_type}")
             device = mesh.device_type
             self.rules = default_rules_for(model_cfg)
-            self.tp = tp_group(mesh)
+            self.tp = axis_group(mesh, "tp")
+            self.ep = axis_group(mesh, "ep")
             self._dp_mesh = _mesh.data_parallel_mesh(mesh)
+            self._expert_mesh = (_mesh.expert_data_parallel_mesh(mesh)
+                                 if self._is_moe and self.ep is not None else None)
             self._fsdp_group = self._dp_mesh.get_group("fsdp")
             rows = _mesh.axis_size(mesh, "dp") * _mesh.axis_size(mesh, "fsdp")
             self._seq_index = _mesh.axis_index(mesh, "sp")
+            self._seq_parts = _mesh.axis_size(mesh, "sp")
             self._example_scale = rows
             self._token_scale = rows * _mesh.axis_size(mesh, "sp")
             n_devices = mesh.size()
@@ -269,7 +314,11 @@ class TrainStep:
         """The family's module for this config on this step's device, with
         torch's default initialisation (``load_flax_state`` fills it); on a
         mesh, this rank's shard of it (``model_for_mesh``) under FSDP2, each
-        block and then the root wrapped by ``fully_shard``."""
+        block and then the root wrapped by ``fully_shard``. Under ep each
+        MoE layer is wrapped first on the mesh of the data ranks that hold
+        the same experts (``expert_data_parallel_mesh``): its experts'
+        gradients are averaged over those, never over ep. Its router rides
+        with it; the router's gradient is the same on every ep rank."""
         if self.mesh is None:
             return self._model_cls(self.model_cfg, device=self.device)
         model = model_for_mesh(self.model_cfg, self.mesh, self.device)
@@ -280,6 +329,9 @@ class TrainStep:
             return Shard(dim or 0)
 
         for block in model.h:
+            if self._expert_mesh is not None and hasattr(block, "moe"):
+                fully_shard(block.moe, mesh=self._expert_mesh,
+                            shard_placement_fn=placement)
             fully_shard(block, mesh=self._dp_mesh, shard_placement_fn=placement)
         fully_shard(model, mesh=self._dp_mesh, shard_placement_fn=placement)
         return model
@@ -316,10 +368,20 @@ class TrainStep:
 
     def _mesh_loss_and_grads(self, model, batch):
         idx = batch["idx"]
-        logits = model(idx, pos_offset=self._seq_index * idx.shape[-1])
+        out = model(idx, pos_offset=self._seq_index * idx.shape[-1])
+        logits, aux = out if self._is_moe else (out, None)
         loss = self.family.vocab_parallel_loss(logits, batch["targets"], self.tp,
                                                model.vocab_start)
-        loss.backward()     # FSDP2 averages each gradient over dp, fsdp and sp
+        if aux is None:
+            loss.backward()     # FSDP2 averages each gradient over dp, fsdp and sp
+        else:
+            # The aux loss is one value over the global sequence, the same
+            # on every sp rank, and each rank's backward carries its own
+            # tokens' part of its gradient; FSDP2's mean over sp would take
+            # 1/sp of their sum, so the backward takes the aux loss sp times
+            # (over dp it is a mean over rows, which the mean keeps).
+            (loss + aux * self._seq_parts).backward()
+            loss = loss.detach() + aux.detach()
         grads = {}
         for name, p in model.named_parameters():
             grads[name] = _flax.local_tensor(p.grad)
@@ -341,18 +403,23 @@ class TrainStep:
 
     def _mesh_norm(self, model, names, grads) -> torch.Tensor:
         """The global norm of the whole gradient from this rank's shards:
-        square sums summed over fsdp, then over tp, where a tp-replicated
-        gradient (or a KV head's copy) counts on one rank only."""
+        square sums summed over fsdp, then over tp and ep, where a
+        tp-replicated gradient (or a head's copy) counts on one tp rank only
+        and every gradient but an expert stack's on ep rank 0 only."""
         sq = torch.stack([g.square().sum() for g in grads])
         dist.all_reduce(sq, group=self._fsdp_group)
-        if self.tp is None:
+        if self.tp is None and self.ep is None:
             return sq.sum().sqrt()
         owner = []
         for name in names:
-            layout = _flax.tp_layout(model, name)
-            owner.append(layout.owner if layout is not None else self.tp.rank == 0)
+            tp, ep = _flax.tp_layout(model, name), _flax.ep_layout(model, name)
+            owner.append((tp.owner if tp is not None else
+                          self.tp is None or self.tp.rank == 0)
+                         and (ep is not None or self.ep is None or self.ep.rank == 0))
         total = (sq * torch.tensor(owner, dtype=sq.dtype, device=sq.device)).sum()
-        dist.all_reduce(total, group=self.tp.group)
+        for group in (self.tp, self.ep):
+            if group is not None:
+                dist.all_reduce(total, group=group.group)
         return total.sqrt()
 
     def _step(self, state, batch) -> Dict[str, torch.Tensor]:
@@ -364,26 +431,11 @@ class TrainStep:
                 self._mesh_norm(model, names, [grads[n] for n in names]))
         g, norm = clip_by_global_norm([grads[n] for n in names], self.grad_clip, norm)
         opt = state["opt_state"]
-        mu = [_flax.local_tensor(opt["mu"][n]) for n in names]
-        nu = [_flax.local_tensor(opt["nu"][n]) for n in names]
-        p = [_flax.local_tensor(params[n]) for n in names]
-        b2 = self.beta2
-        with torch.no_grad():
-            torch._foreach_mul_(mu, ADAM_B1)
-            torch._foreach_add_(mu, g, alpha=1 - ADAM_B1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, g, g, value=1 - b2)
-            opt["count"] += 1
-            count = opt["count"]
-            den = torch._foreach_div(nu, 1 - b2 ** count)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, ADAM_EPS)
-            upd = torch._foreach_div(mu, 1 - ADAM_B1 ** count)
-            torch._foreach_div_(upd, den)
-            decayed = [i for i, x in enumerate(p) if x.ndim > 1]
-            torch._foreach_add_([upd[i] for i in decayed],
-                                [p[i] for i in decayed], alpha=self.weight_decay)
-            torch._foreach_add_(p, upd, alpha=-self.learning_rate)
+        opt["count"] += 1
+        adamw_update_([params[n] for n in names], g, [opt["mu"][n] for n in names],
+                      [opt["nu"][n] for n in names], opt["count"],
+                      learning_rate=self.learning_rate, beta2=self.beta2,
+                      weight_decay=self.weight_decay)
         state["step"] += 1
         return {"loss": loss, "grad_norm": norm}
 

@@ -172,9 +172,10 @@ def _families():
          jax.eval_shape(lambda: jllama.init_params(jllama.LlamaConfig.tiny(
              dtype=jnp.float32))),
          jllama.LLAMA_SHARDING_RULES),
-        (tgmoe.GPT2MoE(tgmoe.GPT2MoEConfig.tiny_moe(), device="cpu"), None,
+        (tgmoe.GPT2MoE(tgmoe.GPT2MoEConfig.tiny_moe(), device="cpu"),
+         tgmoe.GPT2_MOE_SHARDING_RULES,
          jax.eval_shape(lambda: jgmoe.init_params(jgmoe.GPT2MoEConfig.tiny_moe(
-             dtype=jnp.float32))), None),
+             dtype=jnp.float32))), jgmoe.GPT2_MOE_SHARDING_RULES),
     ]
 
 
@@ -195,12 +196,10 @@ def test_every_parameter_has_the_jax_spec_transposed_and_its_flax_path():
         flat = _flat(jparams)
         names = {_flax._torch_name(path): path for path in flat}
         assert set(names) == {n for n, _ in model.named_parameters()}
-        specs = rules.tree_specs(model) if rules is not None else {}
+        specs = rules.tree_specs(model)
         for name, p in model.named_parameters():
             path = names[name]
             assert _flax.flax_path(model, name) == path
-            if rules is None:
-                continue
             want = _padded(jrules.spec_for(path), p.ndim)
             if path.endswith("kernel"):
                 want = want[::-1]

@@ -40,6 +40,7 @@ from ray_tpu.train import _telemetry as jtel
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models import gpt2_moe as tgmoe
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.parallel.pipeline import PipelineTrainStep
 from ray_tpu_torch.parallel.train_step import TrainStep, clip_by_global_norm
 from ray_tpu_torch.train import _telemetry as ttel
 
@@ -309,13 +310,12 @@ def test_constructor_refuses_what_is_not_ported(monkeypatch, case):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainStep(TCFG)
-    elif case == "mesh":   # GPT-2-MoE on a mesh, and the ep and pp axes
+    elif case == "mesh":   # what JAX's shardings refuse too, before any collective
         moe = tgmoe.GPT2MoEConfig.tiny_moe(dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            TrainStep(moe, _AxisSizes(dp=2), device="cpu")
-        for axis in ("ep", "pp"):
-            with pytest.raises(NotImplementedError, match="item 8b"):
-                TrainStep(TCFG, _AxisSizes(dp=2, **{axis: 2}), device="cpu")
+        with pytest.raises(ValueError, match="ep = 8 does not divide num_experts = 4"):
+            TrainStep(moe, _AxisSizes(dp=1, ep=8), device="cpu")
+        with pytest.raises(ValueError, match="n_layer=2 not divisible by pp=4"):
+            PipelineTrainStep(TCFG, _AxisSizes(dp=2, pp=4), device="cpu")
     else:   # a config that is not one of the port's families
         with pytest.raises(TypeError, match="LlamaConfig"):
             TrainStep(JCFG, device="cpu")

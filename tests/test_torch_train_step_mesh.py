@@ -2,8 +2,9 @@
 
 Eight gloo ranks (spawned once for the module, ``_torch_ranks``; they
 never import JAX) train the fp32 tiny configs of the JAX package's tests,
-GPT-2 on the eight meshes of ``tests/test_train_step.py`` that the port
-takes and Llama (4 query heads, 2 KV heads) on the five of
+GPT-2 on the nine meshes of ``tests/test_train_step.py`` ({"tp": 8} among
+them: gpt2-tiny's 4 heads each computed by 2 tp ranks) and Llama (4 query
+heads, 2 KV heads) on the five of
 ``tests/test_llama.py``, B = 8, T = 64, each from the JAX initial state
 carried across with ``load_flax_state``, at the JAX tests' settings
 (GPT-2 three steps at lr 1e-3, Llama four at 5e-3). Each mesh's losses
@@ -17,10 +18,13 @@ one-device step, which ``tests/test_train_step.py`` holds equal to every
 mesh.
 
 Also: vocabulary 509 over tp = 4 (uneven shards and vocab-parallel loss),
-the shards of an fsdp x tp mesh, ``multi_step`` on a mesh, the refusals ({"tp": 8} on gpt2-tiny's 4
-heads, the ep axis), and the recorder's global token count.
+the shards of an fsdp x tp mesh, ``multi_step`` on a mesh, the refusals
+JAX shares (12 heads over tp = 8, ep over more ranks than experts), and
+the recorder's global token count.
 """
 
+import dataclasses
+import pickle
 import types
 
 import numpy as np
@@ -37,7 +41,7 @@ STEPS = {"gpt2": 3, "llama": 4}
 RTOL = 1e-4
 GPT2_MESHES = [{"dp": 8}, {"fsdp": 8}, {"dp": 2, "fsdp": 4}, {"dp": 2, "tp": 4},
                {"sp": 8}, {"dp": 2, "sp": 4}, {"dp": 2, "fsdp": 2, "tp": 2},
-               {"dp": 2, "sp": 2, "tp": 2}]
+               {"dp": 2, "sp": 2, "tp": 2}, {"tp": 8}]
 LLAMA_MESHES = [{"dp": 8}, {"fsdp": 8}, {"tp": 4, "dp": 2}, {"sp": 4, "dp": 2},
                 {"dp": 2, "fsdp": 2, "tp": 2}]
 # (family, vocab) -> the meshes whose JAX reference runs on that same mesh
@@ -75,12 +79,14 @@ def _torch_cfg(family, vocab):
     return cls.tiny(use_flash_attention=False, dtype=torch.float32, vocab_size=vocab)
 
 
-def _train_body(rank, world, inits):
+def _train_body(rank, world, inits_path):
     """Every case on the 8 ranks; each rank yields what the tests read."""
-    from ray_tpu_torch.models import _flax
+    from ray_tpu_torch.models import _flax, gpt2_moe
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.parallel.train_step import TrainStep
 
+    with open(inits_path, "rb") as f:
+        inits = pickle.load(f)
     for name, family, vocab, axes in _cases():
         ts = TrainStep(_torch_cfg(family, vocab), make_mesh(axes, device="cpu"),
                        learning_rate=LR[family])
@@ -117,9 +123,11 @@ def _train_body(rank, world, inits):
                          for k in ("loss", "grad_norm")}
 
     refused = {}
-    for key, axes, family in (("tp8", {"tp": 8}, "gpt2"), ("ep", {"dp": 4, "ep": 2}, "gpt2")):
+    twelve_heads = dataclasses.replace(_torch_cfg("gpt2", 512), n_head=12, n_embd=96)
+    moe = gpt2_moe.GPT2MoEConfig.tiny_moe(use_flash_attention=False, dtype=torch.float32)
+    for key, axes, cfg in (("tp8", {"tp": 8}, twelve_heads), ("ep", {"ep": 8}, moe)):
         try:
-            TrainStep(_torch_cfg(family, 512), make_mesh(axes, device="cpu"))
+            TrainStep(cfg, make_mesh(axes, device="cpu"))
         except (ValueError, NotImplementedError) as exc:
             refused[key] = (type(exc).__name__, str(exc))
     yield "refused", refused
@@ -171,7 +179,12 @@ def jax_inits():
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, jax_inits):
-    pool = Ranks(_train_body, 8, tmp_path_factory.mktemp("train_ranks"), (jax_inits,))
+    # the states go through a file: a large argument would hold each
+    # spawn's start until the child had imported torch to read it
+    workdir = tmp_path_factory.mktemp("train_ranks")
+    with open(workdir / "inits.pkl", "wb") as f:
+        pickle.dump(jax_inits, f)
+    pool = Ranks(_train_body, 8, workdir, (str(workdir / "inits.pkl"),))
     yield pool
     pool.close()
 
@@ -251,6 +264,6 @@ def test_multi_step_on_a_mesh_matches_repeated_step(ranks):
 def test_refuses_what_the_mesh_cannot_take(ranks):
     refused = ranks.get("refused")
     kind, msg = refused["tp8"]
-    assert kind == "ValueError" and "4 heads do not split over tp = 8" in msg
+    assert kind == "ValueError" and "12 heads do not split over tp = 8" in msg
     kind, msg = refused["ep"]
-    assert kind == "NotImplementedError" and "item 8b" in msg
+    assert kind == "ValueError" and msg == "ep = 8 does not divide num_experts = 4"
