@@ -105,10 +105,29 @@ script exits non-zero:
              on the card, and the card against the port's CPU step from
              the same weights (1e-5 relative, 2 * lr)
 
+ 15. runtime  the port's runtime with the card as its device (after the
+             NCCL group is destroyed): ray_tpu_torch.init(num_cpus=4)
+             autodetects it (cluster_resources()["GPU"] equals the cards
+             torch sees); a first num_gpus=1 task times the lease (the
+             worker's fork, torch import and CUDA context); a num_gpus=1
+             actor builds GPT-2-124M (fp32) on its leased card and serves
+             phase 6's prompts through LLMEngine: the forward kernel
+             launches in the actor, no plain call, its
+             CUDA_VISIBLE_DEVICES is its get_accelerator_ids(), and its
+             streams equal phase 6's or leave them only at a near tie of
+             the CPU plain forward; a num_gpus=1 task trains GPT-2-124M
+             as in phase 7 for 3 steps (24 / 12 / 12 launches a step, no
+             plain call; losses within 1e-3 relative of phase 7's first
+             three); a 256 MiB bf16 CUDA tensor goes through put, a GPU
+             task and get, and comes back bitwise equal as a CPU tensor
+             (put, task and get ms); every process the runtime started is
+             stopped
+
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
-train, MoE on the mesh, the pipeline; every full-width path must show 0
-plain calls) and, last, ``{"ok": true, "device": ...}``.
+train, MoE on the mesh, the pipeline, the runtime's actor and task; every
+full-width path must show 0 plain calls) and, last,
+``{"ok": true, "device": ...}``.
 
 With ``--ranks N`` it needs N cards and runs, after the device and build
 phases, only the mesh path across them: N processes, one card each, over
@@ -131,7 +150,9 @@ RANKS_PIPE_MESHES ({"dp": 2, "pp": 2}, {"pp": 4}) beside one card's run
 at dp 1 x pp 1 (made by the parent process on card 0 before the ranks
 start), with a 4-layer fp32 step on each against that card's; and a
 GPT-2-124M-width model with 2 heads trains one fp32 step at {"tp": 4}
-(each head computed by 2 ranks) against one card.
+(each head computed by 2 ranks) against one card. Last, the port's
+runtime on the N cards: init detects N GPUs, and N / 2 actors of
+num_gpus=2 get disjoint pairs covering them all, each seeing 2 cards.
 Without CUDA it exits 2 before printing any result.
 """
 
@@ -247,6 +268,10 @@ TINY_SERVE = {"n_layer": 2, "n_embd": 64, "n_head": 4, "vocab_size": 96,
 TINY_POOL = {"num_blocks": 24, "block_size": 4}
 HEAD48_TRAIN_BATCH = (4, 1024)
 PADDED_SHAPES = ((1, 4, 40, 16), (4, 16, 1024, 48))
+RUNTIME_TRAIN_STEPS = 3       # the GPU task's steps, the first its warm-up
+RUNTIME_LOSS_RTOL = 1e-3      # bf16: its losses vs the train phase's same steps
+RUNTIME_OBJECT_NUMEL = 128 * 2**20   # a 256 MiB bf16 tensor
+RUNTIME_STOP_S = 30           # the runtime's processes' time to leave
 BIG_BH_SHAPE = (5462, 12, 16, 64)
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
@@ -787,7 +812,9 @@ def phase_serve(card: str):
     run = serve_run(card, "serve", adapter)
     del adapter
     torch.cuda.empty_cache()
-    return {k: run[k] for k in ("launches", "plain_calls", "tokens_per_s", "telemetry")}
+    # prompts, outputs and the CPU model stay for the runtime phase
+    return {k: run[k] for k in ("launches", "plain_calls", "tokens_per_s", "telemetry",
+                                "prompts", "outputs", "cpu_model")}
 
 
 def traced_step(ts, state, batch):
@@ -1568,6 +1595,286 @@ def phase_pipeline(card: str):
     return run
 
 
+# ------------------------------------------------------------------ runtime
+# The workers of the port's runtime are forks of its fork server, which
+# never imports torch: CUDA is first touched in the worker, after its
+# lease's CUDA_VISIBLE_DEVICES is set. The classes and functions below go
+# to them by value (cloudpickle) with this module's globals.
+
+
+def _lease_probe():
+    """A GPU lease's first seconds: the worker's torch import and CUDA
+    context, on the card the lease names."""
+    import os
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    import torch as _torch
+
+    t1 = time.perf_counter()
+    _torch.ones(1, device=DEVICE).sum().item()
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "accelerator_ids": ray_tpu_torch.get_runtime_context().get_accelerator_ids(),
+            "device_count": _torch.cuda.device_count(),
+            "import_torch_s": t1 - t0, "cuda_context_s": time.perf_counter() - t1}
+
+
+class RuntimeServer:
+    """A GPU actor: GPT-2-124M at full width, fp32, on its leased card,
+    serving through LLMEngine."""
+
+    def __init__(self):
+        from ray_tpu_torch.serve.llm.adapters import build_adapter
+
+        t0 = time.perf_counter()
+        self.adapter = build_adapter("gpt2", seed=0, device=DEVICE)
+        cfg = self.adapter.cfg
+        if (cfg.n_layer, cfg.n_head, cfg.n_embd, cfg.vocab_size, cfg.block_size) \
+                != SERVE_WIDTH or self.adapter.dtype != torch.float32:
+            raise AssertionError(f"not GPT-2-124M at full width in fp32: {cfg}")
+        self.build_s = time.perf_counter() - t0
+
+    def serve(self, prompts):
+        import os
+
+        import ray_tpu_torch
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        engine = LLMEngine(self.adapter, name="runtime_serve")
+        reset_counts()
+        outputs, wall = drive_engine(engine, prompts, SERVE_MAX_TOKENS)
+        launches, plain_calls = read_counts()[0], read_counts()[3]
+        return {"outputs": outputs, "wall_s": wall, "launches": launches,
+                "plain_calls": plain_calls, "build_s": self.build_s,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "accelerator_ids":
+                    ray_tpu_torch.get_runtime_context().get_accelerator_ids(),
+                "device_count": torch.cuda.device_count()}
+
+
+def _train_task(steps: int):
+    """GPT-2-124M through TrainStep on the leased card, bf16, from the
+    train phase's seed and batch: the losses, each step's counts and ms."""
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.train_step import TrainStep
+
+    cfg = GPT2Config.gpt2_124m()
+    ts = TrainStep(cfg, device=DEVICE)
+    state = ts.init(torch.Generator().manual_seed(0))
+    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, TRAIN_BATCH)
+    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    losses, counts, step_ms = [], [], []
+    for _ in range(steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)   # ends in a synchronise (telemetry)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        losses.append(m["loss"].item())
+    return {"losses": losses, "counts": counts, "step_ms": step_ms,
+            "n_layer": cfg.n_layer}
+
+
+def _object_task(t):
+    """Receives the driver's CUDA tensor (as a CPU tensor) and sends it
+    back from its own card."""
+    if t.device.type != "cpu":
+        raise AssertionError(f"a stored tensor arrived on {t.device}")
+    return t.to(DEVICE)
+
+
+def stop_runtime(rt) -> None:
+    """``rt.shutdown()``, then wait for every process the runtime started:
+    actor workers (forks of the fork server, in sessions of their own)
+    leave a moment after their raylet, and the script must not end before
+    them. Any still alive after RUNTIME_STOP_S is killed."""
+    import psutil
+
+    procs = psutil.Process().children(recursive=True)
+    rt.shutdown()
+    gone, alive = psutil.wait_procs(procs, timeout=RUNTIME_STOP_S)
+    for proc in alive:
+        proc.kill()
+    psutil.wait_procs(alive, timeout=10)
+    log(f"[runtime] shutdown: {len(gone)} of the runtime's {len(procs)} "
+        f"processes left within {RUNTIME_STOP_S} s, {len(alive)} killed")
+
+
+def _bitwise_equal(a, b) -> bool:
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(width), b.contiguous().view(width)))
+
+
+def phase_runtime(card: str, serve, train):
+    """The port's runtime on the card: ``init`` autodetects it; a
+    ``num_gpus=1`` actor serves the serve phase's prompts through the
+    forward kernel with streams equal to the in-process engine's (or
+    leaving them only at a near tie of the CPU plain forward); a
+    ``num_gpus=1`` task trains GPT-2-124M for RUNTIME_TRAIN_STEPS steps at
+    24 / 12 / 12 launches a step with losses within RUNTIME_LOSS_RTOL of the
+    train phase's same steps; a 256 MiB bf16 CUDA tensor goes through
+    ``put`` and a GPU task and comes back bitwise. Every process the runtime
+    started is stopped before the phase returns or raises."""
+    import ray_tpu_torch as rt
+
+    # the same import in a fresh interpreter, beside the lease's
+    fresh = subprocess.run(
+        [sys.executable, "-c", "import time; t0 = time.perf_counter(); "
+         "import torch; print(time.perf_counter() - t0)"],
+        capture_output=True, text=True, check=True, timeout=300)
+    fresh_import_s = float(fresh.stdout.split()[-1])
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        start_s = time.perf_counter() - t0
+        gpus = rt.cluster_resources().get("GPU", 0)
+        if gpus != torch.cuda.device_count():
+            raise AssertionError(f"the runtime detected {gpus} GPUs, torch sees "
+                                 f"{torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        probe = rt.get(rt.remote(num_gpus=1)(_lease_probe).remote(), timeout=300)
+        lease_s = time.perf_counter() - t0
+        log(f"[runtime] cluster start {start_s:.2f} s; first GPU lease "
+            f"{lease_s:.2f} s (of which the worker's torch import "
+            f"{probe['import_torch_s']:.2f} s and its CUDA context "
+            f"{probe['cuda_context_s']:.2f} s; import torch in a fresh "
+            f"interpreter {fresh_import_s:.2f} s): {json.dumps(probe)}")
+
+        # the actor's first run pays its process's first launches (kernel
+        # libraries, cuBLAS, the allocator): timed apart from the second,
+        # which is the one compared with the in-process serve phase
+        server = rt.remote(num_gpus=1)(RuntimeServer).remote()
+        cold = rt.get(server.serve.remote(serve["prompts"]), timeout=600)
+        got = rt.get(server.serve.remote(serve["prompts"]), timeout=600)
+        rt.kill(server)
+        if cold.pop("outputs") != got["outputs"] or cold["launches"] != got["launches"]:
+            raise AssertionError(f"the actor's two runs differ: {cold}, {got}")
+        ids = got["accelerator_ids"]["GPU"]
+        if got["visible"] is None or ids != got["visible"].split(",") \
+                or len(ids) != 1 or got["device_count"] != 1:
+            raise AssertionError(f"the actor's lease: {got['visible']}, {ids}, "
+                                 f"{got['device_count']} cards")
+        outputs = got.pop("outputs")
+        differ = {i: next(c for c, (a, b) in enumerate(zip(toks, serve["outputs"][i]))
+                          if a != b)
+                  for i, toks in outputs.items() if toks != serve["outputs"][i]}
+        worst = 0.0
+        if differ:   # each differing stream must be near-greedy from there on
+            gaps = greedy_gaps(serve["cpu_model"], serve["prompts"],
+                               {i: outputs[i] for i in differ})
+            worst = max(max(g[differ[i]:]) for i, g in gaps.items())
+        n_tokens = SERVE_MAX_TOKENS * len(serve["prompts"])
+        got.update(tokens_per_s=n_tokens / got["wall_s"], first_differences=differ,
+                   worst_gap_after_difference=worst,
+                   cold_tokens_per_s=n_tokens / cold["wall_s"])
+        log(f"[runtime] actor: {len(outputs)} requests x {SERVE_MAX_TOKENS} tokens at "
+            f"{got['tokens_per_s']:.1f} tokens/s (its first run "
+            f"{got['cold_tokens_per_s']:.1f}; in-process serve phase "
+            f"{serve['tokens_per_s']:.1f}; the serve phase synchronises around "
+            f"each prefill) on {card}; streams equal {len(outputs) - len(differ)}"
+            f"/{len(outputs)}; {json.dumps(got)}")
+        if got["launches"] == 0 or got["plain_calls"] or worst > GREEDY_TOL:
+            raise AssertionError(f"the actor's serving path: {got}")
+
+        run = rt.get(rt.remote(num_gpus=1)(_train_task).remote(RUNTIME_TRAIN_STEPS),
+                     timeout=600)
+        want = (2 * run["n_layer"], run["n_layer"], run["n_layer"], 0)
+        ref = train["losses"][:RUNTIME_TRAIN_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref)]
+        log(f"[runtime] train task: losses {run['losses']} vs the train phase's "
+            f"{ref}: largest relative difference {max(rel):.3g} (limit "
+            f"{RUNTIME_LOSS_RTOL}); step ms {[round(x, 2) for x in run['step_ms']]} "
+            f"(first includes the warm-up) vs the train phase's median "
+            f"{train['median_step_ms']:.2f} on {card}; counts per step "
+            f"(fwd, dq, dkv, plain) {run['counts']}")
+        if any(tuple(c) != want for c in run["counts"]) or max(rel) > RUNTIME_LOSS_RTOL:
+            raise AssertionError(f"the train task: {run}, expected {want} a step")
+
+        x = torch.randn(RUNTIME_OBJECT_NUMEL, device=DEVICE).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = x.cpu()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host_ref = rt.put(host)          # the same bytes, from the host
+        put_host_ms = (time.perf_counter() - t0) * 1e3
+        del host_ref, host
+        t0 = time.perf_counter()
+        ref = rt.put(x)
+        put_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back_ref = rt.remote(num_gpus=1)(_object_task).remote(ref)
+        rt.wait([back_ref], timeout=300)
+        task_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = rt.get(back_ref, timeout=300)
+        get_ms = (time.perf_counter() - t0) * 1e3
+        mib = x.numel() * x.element_size() / 2**20
+        equal = back.device.type == "cpu" and _bitwise_equal(back, x.cpu())
+        log(f"[runtime] objects: put of a {mib:.0f} MiB bf16 CUDA tensor "
+            f"{put_ms:.1f} ms (its device-to-host copy alone {copy_ms:.1f} ms; "
+            f"a put of the same bytes from the host, the first into the "
+            f"store, {put_host_ms:.1f} ms), the GPU task that gets it and returns it from its "
+            f"card {task_ms:.1f} ms, get of the result {get_ms:.1f} ms on {card}; "
+            f"bitwise equal on the CPU: {equal}")
+        if not equal:
+            raise AssertionError("the tensor did not come back bitwise")
+    finally:
+        stop_runtime(rt)
+    return {"start_s": start_s, "first_gpu_lease_s": lease_s,
+            "lease_import_torch_s": probe["import_torch_s"],
+            "lease_cuda_context_s": probe["cuda_context_s"],
+            "fresh_import_torch_s": fresh_import_s,
+            "actor_build_s": got["build_s"],
+            "serve_launches": got["launches"], "serve_plain_calls": got["plain_calls"],
+            "serve_tokens_per_s": got["tokens_per_s"],
+            "serve_tokens_per_s_first_run": got["cold_tokens_per_s"],
+            "serve_tokens_per_s_in_process": serve["tokens_per_s"],
+            "serve_streams_equal": len(outputs) - len(differ),
+            "train_losses": run["losses"], "train_loss_max_rel_diff": max(rel),
+            "train_step_ms": run["step_ms"],
+            "train_median_step_ms_in_process": train["median_step_ms"],
+            "train_launches": [sum(c[i] for c in run["counts"]) for i in range(3)],
+            "train_plain_calls": sum(c[3] for c in run["counts"]),
+            "object_mib": mib, "put_ms": put_ms, "copy_to_host_ms": copy_ms,
+            "put_from_host_ms": put_host_ms, "task_ms": task_ms, "get_ms": get_ms}
+
+
+class PairActor:
+    """A ``num_gpus=2`` actor of ``--ranks``: what its lease lets it see."""
+
+    def check(self):
+        import os
+
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count()}
+
+
+def runtime_ranks(world: int):
+    """``--ranks N`` (N even): ``init`` sees the N cards, and N / 2 actors
+    of ``num_gpus=2`` get disjoint pairs covering all of them, each seeing
+    two cards."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4)
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0)
+        actors = [rt.remote(num_gpus=2)(PairActor).remote() for _ in range(world // 2)]
+        seen = rt.get([a.check.remote() for a in actors], timeout=300)
+    finally:
+        stop_runtime(rt)
+    pairs = [set(s["visible"].split(",")) for s in seen]
+    log(f"[runtime] {world} cards: the runtime detected {gpus} GPUs; "
+        f"num_gpus=2 actors saw {seen}")
+    if (gpus != world or any(len(p) != 2 for p in pairs)
+            or set().union(*pairs) != {str(i) for i in range(world)}
+            or any(s["device_count"] != 2 for s in seen)):
+        raise AssertionError(f"GPU leases over {world} cards: {gpus} GPUs, {seen}")
+    return {"gpus": gpus, "pairs": [s["visible"] for s in seen]}
+
+
 def phase_ranks(card: str, world: int, pipe_ref):
     """This rank's part of ``--ranks``: the one-device GPT-2-124M step on
     its card, then GPT-2-124M on each mesh of RANKS_TRAIN_MESHES, then the
@@ -1753,6 +2060,7 @@ def main_ranks(world: int) -> int:
             p.join()
         scratch.cleanup()
     got[0]["pipeline_one_card"] = {k: v for k, v in pipe_ref.items() if k != "path"}
+    got[0]["runtime"] = runtime_ranks(world)
     log(f"[ranks] {json.dumps(got[0])}")
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -1786,6 +2094,9 @@ def main() -> int:
     moe_mesh = phase_moe_mesh(card, moe)
     pipeline = phase_pipeline(card)
     torch.distributed.destroy_process_group()
+    runtime = phase_runtime(card, serve, train)
+    for key in ("prompts", "outputs", "cpu_model"):
+        serve.pop(key)
 
     fwd_head = next(c for c in fwd_cases if "ms" in c and c["shape"] == list(HEADLINE[0])
                     and c["dtype"] == dtype_name(HEADLINE[1]))
@@ -1799,7 +2110,9 @@ def main() -> int:
                    "llama_serve": llama["serve_plain_calls"],
                    "spec": spec["plain_calls"], "moe_train": moe["plain_calls"],
                    "mesh": mesh["plain_calls"], "moe_mesh": moe_mesh["plain_calls"],
-                   "pipeline": pipeline["plain_calls"]}
+                   "pipeline": pipeline["plain_calls"],
+                   "runtime_serve": runtime["serve_plain_calls"],
+                   "runtime_train": runtime["train_plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -1816,7 +2129,9 @@ def main() -> int:
                              "moe_train": moe["launches"][0],
                              "mesh": mesh["launches"][0],
                              "moe_mesh": moe_mesh["launches"][0],
-                             "pipeline": pipeline["launches"][0]},
+                             "pipeline": pipeline["launches"][0],
+                             "runtime_serve": runtime["serve_launches"],
+                             "runtime_train": runtime["train_launches"][0]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -1849,7 +2164,9 @@ def main() -> int:
                                                    ("moe_train", moe),
                                                    ("mesh", mesh),
                                                    ("moe_mesh", moe_mesh),
-                                                   ("pipeline", pipeline))},
+                                                   ("pipeline", pipeline),
+                                                   ("runtime_train",
+                                                    {"launches": runtime["train_launches"]}))},
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
             "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
                                              if c["dtype"] == dt for o in outputs)
@@ -1861,7 +2178,7 @@ def main() -> int:
             "library_ms": bwd_head["library_ms"],
             "plain_calls_by_path": {path: plain_calls[path] for path in
                                     ("train", "llama_train", "moe_train", "mesh",
-                                     "moe_mesh", "pipeline")},
+                                     "moe_mesh", "pipeline", "runtime_train")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -1884,6 +2201,7 @@ def main() -> int:
     log(f"[mesh] {json.dumps(mesh)}")
     log(f"[moe_mesh] {json.dumps(moe_mesh)}")
     log(f"[pipeline] {json.dumps(pipeline)}")
+    log(f"[runtime] {json.dumps(runtime)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,22 @@ with its plain PyTorch version beside it.
 
 What is ported so far (the serving and training slices, every model
 family of the JAX zoo, speculative decoding, the metrics and the flight
-recorder, the training step on a mesh of dp, fsdp, tp and sp):
+recorder, the training step on a mesh of dp, fsdp, tp, sp, ep and pp, and
+the runtime's core on one node):
+
+  api.py, actor.py,      init / remote / get / put / wait / kill / shutdown,
+  remote_function.py,    actors and tasks with ``num_gpus`` (copies of the
+  runtime_context.py     JAX runtime's, GPUs where it has TPU chips),
+                         loaded lazily from this package
+  _private/              the runtime's core (copies): ids, rpc, the GCS,
+                         the raylet (per-lease CUDA_VISIBLE_DEVICES), the
+                         fork server and workers, the CoreWorker,
+                         serialization (torch tensors by way of numpy,
+                         out of band), the memory store, reference
+                         counting, the flags as RTPU_TORCH_*; GPU
+                         detection without CUDA (accelerators.py)
+  _native/plasma.py      the shared-memory object store, C++ built at
+                         first use
 
   ops/attention.py       causal attention, differentiable; where the kernels
                          take the head dim (32, 64, 128) and type, on a CUDA
@@ -55,8 +70,68 @@ recorder, the training step on a mesh of dp, fsdp, tp and sp):
                          gpt2-moe-tiny, llama-tiny, llama-160m, fake)
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``; without CUDA they raise rather than fall back.
-The trainer (worker groups over the runtime) comes later.
+``device="cpu"``; without CUDA they raise rather than fall back. This
+module and the runtime's control plane (the GCS, the raylet, the fork
+server) never import torch: a worker first touches CUDA after its lease's
+``CUDA_VISIBLE_DEVICES`` is set. The trainer (worker groups over the
+runtime) comes later.
+
+Attribute access is lazy (PEP 562), as in ``ray_tpu``: control-plane
+processes that import only their own submodules don't pay for the API.
 """
 
 __version__ = "0.1.0"
+
+_API = {
+    "available_resources", "cancel", "cluster_resources", "get", "init",
+    "is_initialized", "kill", "nodes", "put", "remote", "shutdown",
+    "timeline", "wait",
+}
+
+__all__ = sorted(
+    _API
+    | {
+        "__version__", "ObjectRef", "ActorClass", "ActorHandle", "get_actor",
+        "RemoteFunction", "get_runtime_context", "exceptions", "method",
+    }
+)
+
+
+def __getattr__(name):
+    if name in _API:
+        import ray_tpu_torch.api as _api
+
+        return getattr(_api, name)
+    if name == "ObjectRef":
+        from ray_tpu_torch._private.object_ref import ObjectRef
+
+        return ObjectRef
+    if name in ("ActorClass", "ActorHandle", "get_actor"):
+        import ray_tpu_torch.actor as _actor
+
+        return getattr(_actor, name)
+    if name == "RemoteFunction":
+        from ray_tpu_torch.remote_function import RemoteFunction
+
+        return RemoteFunction
+    if name == "get_runtime_context":
+        from ray_tpu_torch.runtime_context import get_runtime_context
+
+        return get_runtime_context
+    if name == "exceptions":
+        import ray_tpu_torch.exceptions as _exc
+
+        return _exc
+    if name == "method":
+        from ray_tpu_torch.actor import method
+
+        return method
+    if name == "util":
+        import ray_tpu_torch.util as _util
+
+        return _util
+    if name in ("train", "serve"):
+        import importlib
+
+        return importlib.import_module(f"ray_tpu_torch.{name}")
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute '{name}'")

@@ -1,12 +1,15 @@
 """Per-process flight recorder: a fixed-size ring of cheap structured events.
 
-A copy of ``ray_tpu/_private/flight_recorder.py`` (the port imports
-nothing of the JAX package) that reads the port's flags:
-``RTPU_TORCH_flight_recorder`` (0 gives the no-op recorder) and
-``RTPU_TORCH_flight_recorder_size``. The ring answers "what were the last
-things this process did before it stalled or died", which gauges cannot:
-the engine appends one event per sequence admission, preemption, finish,
-prefix hit and verify round, and the train recorder one per step call.
+A copy of ``ray_tpu/_private/flight_recorder.py`` (the port imports nothing
+of the JAX package) that reads the port's flags: ``RTPU_TORCH_flight_recorder``
+(0 gives the no-op recorder) and ``RTPU_TORCH_flight_recorder_size``. Every
+process of the port's runtime (driver, worker, raylet, GCS), the LLM engine
+and the train recorder append structured events to a bounded in-memory ring
+on their hot paths; nothing is formatted or serialized until someone asks
+for a dump (reference analogues: the reference's task-event buffer and the
+"flight recorder" pattern, arxiv 2011.03641 §5 straggler diagnosis). The
+ring answers "what were the last things this process did before it stalled
+or died", which Prometheus gauges cannot.
 
 Hot-path discipline: ``record()`` is ONE ``deque.append`` of a small tuple
 (seq, ts, event, a, b) — no dict build, no hex/str conversion, no lock
@@ -14,24 +17,53 @@ Hot-path discipline: ``record()`` is ONE ``deque.append`` of a small tuple
 ``itertools.count``). Formatting happens only in ``dump()`` /
 ``flush_to_file()``.
 
-Surfacing: ``dump()`` in the process; ``flush_to_file`` appends the events
-since its last call to a JSONL file, and ``install_exit_dump`` arranges a
-last flush on normal exit and SIGTERM. The port has no runtime yet, so
-nothing else reads the ring (no RPC, no periodic flush, no incident).
+Surfacing:
+
+  - ``DumpFlightRecorder`` RPC on raylets (fans out to live workers) and
+    workers;
+  - workers append new events to ``<session>/logs/flight_worker-<pid>.jsonl``
+    on the task-event flush cadence and on exit, so the raylet can attach a
+    SIGKILLed worker's last events to its death report (→ ActorDiedError);
+  - the stall watchdog (_private/watchdog.py) snapshots the ring into every
+    incident it publishes to the GCS;
+  - ``install_exit_dump`` arranges a last flush to a file of the caller's
+    choosing on normal exit and SIGTERM.
 
 EVENT-NAME STABILITY CONTRACT
 -----------------------------
 The event names are the JAX package's, a public debugging surface: the
-``flight_*.jsonl`` files carry them and operators grep for them. Renaming
-or repurposing one is a breaking change — add new names instead.
-``a``/``b`` hold the event's subject (ids as raw bytes, hex-encoded at dump
-time) and a short detail string/number. The names the port records:
+``flight_*.jsonl`` session files and incident records carry them, and
+operators grep for them. Renaming or repurposing one is a breaking change —
+add new names instead. ``a``/``b`` hold the event's subject (ids as raw
+bytes, hex-encoded at dump time) and a short detail string/number.
 
+  task.pending / task.submitted / task.running / task.finished /
+  task.failed / task.retry       task state transitions (mirrors the GCS
+                                 task-event states, lowercased)
+  obj.put                        plasma/inline store of an owned object
+  obj.spill / obj.restore        raylet spill-to-disk and restore, one
+                                 event per object: (oid, bytes) — the
+                                 timeline renders these as instants on
+                                 the owning node's lane
+  obj.leak                       the leak detector confirmed a primary
+                                 with no live owner reference (oid, bytes)
+  obj.pull / obj.push            node-to-node object transfer attempts
+  rpc.error                      a transport-level RPC failure at a
+                                 recorded call site (lease push, reply
+                                 flush, transfer)
+  lease.grant / lease.return     raylet worker-lease lifecycle
+  worker.spawn / worker.death    raylet worker-pool lifecycle
+  worker.oom_kill                memory-monitor kill
+  actor.state                    actor lifecycle transition (GCS + owner)
+  node.dead                      GCS marked a node dead
+  chan.up / chan.down            direct call channel lifecycle
+  collective.enter / collective.exit   gloo-style CPU collective ops
   train.step                     one (multi-)step call recorded by the
                                  train telemetry layer: "<n>x <s>s
                                  [compile]", or without telemetry
                                  "dispatch" / "trace+compile" /
                                  "multi_step x<n>"
+  serve.request                  one replica-side serve request finished
   llm.admit / llm.preempt / llm.finish   serve/llm engine sequence
                                  lifecycle (admit carries the prompt
                                  length + prefix-hit token count)
@@ -39,11 +71,22 @@ time) and a short detail string/number. The names the port records:
                                  "<seq> hit=<tokens>/<context>"
   llm.spec_verify                one speculative verify round:
                                  "batch=<B> k=<proposed> accepted=<n>"
+  chaos.inject                   the chaos plane fired a fault:
+                                 "<site> <action> rule=<i> <attrs>" —
+                                 tests join these against the incident
+                                 table to assert exactly-one attributed
+                                 incident per induced fault
+  serve.failover                 a serve.llm stream resubmitted its
+                                 remaining generation to a surviving
+                                 replica after its pinned replica died:
+                                 "<app> <old>-><new> tokens=<n>
+                                 attempt=<k>"
+  incident.open                  the GCS accepted an incident record
+  watchdog.fire                  a stall watchdog tripped locally
 
-The JAX package's other names (task.*, obj.*, rpc.error, lease.*,
-worker.*, actor.state, node.dead, chan.*, collective.*, serve.request,
-chaos.inject, serve.failover, incident.open, watchdog.fire) belong to its
-runtime and serve deployment, which come to the port later and keep them.
+The port records all but collective.*, serve.request, serve.failover and
+obj.pull / obj.push so far: their modules (util/collective, the serve
+deployment, multi-node transfer) come to it later and keep these names.
 """
 
 from __future__ import annotations
@@ -139,7 +182,7 @@ class FlightRecorder:
 
 
 class _NullRecorder:
-    """RTPU_flight_recorder=0: every entry point is a no-op."""
+    """RTPU_TORCH_flight_recorder=0: every entry point is a no-op."""
 
     dump_path = None
 
@@ -202,8 +245,8 @@ def flush_to_file(path: Optional[str] = None) -> int:
 
 
 def flush_now():
-    """Best-effort final flush (the atexit and SIGTERM hooks of
-    :func:`install_exit_dump`; in the JAX package also its os._exit paths)."""
+    """Best-effort final flush for os._exit paths (Exit/KillActor RPCs,
+    raylet-death suicide) where atexit never runs."""
     try:
         get_recorder().flush_to_file()
     except Exception:
@@ -237,9 +280,8 @@ def install_exit_dump(path: str):
 
 
 def read_tail_file(path: str, limit: int = 8) -> List[dict]:
-    """Read the last ``limit`` events of a flight JSONL file (in the JAX
-    package, the raylet attaches a dead worker's final events to its death
-    report this way)."""
+    """Read the last ``limit`` events of a flight JSONL file (raylet side:
+    attach a dead worker's final events to its death report)."""
     try:
         with open(path, "rb") as f:
             try:

@@ -7,12 +7,13 @@ package does:
 
   1. ``ray_tpu_torch.util.metrics`` records with the JAX package's
      ``ray_tpu_train_*`` names, help strings and histogram boundaries
-     (read with ``drain_records``: the port has no flush loop yet);
+     (a runtime worker flushes them to the GCS; elsewhere read them with
+     ``drain_records``);
   2. a ``train.step`` event in the flight recorder per step call;
-  3. one span per step call, built as the JAX package builds it; with no
-     runtime worker to carry it yet (ROADMAP Queue A item 11) it is
-     emitted nowhere, as in the JAX package where ``global_worker`` is
-     None;
+  3. one span per step call, built as the JAX package builds it, into
+     the task-event buffer of this process's runtime worker when there is
+     one (none outside the runtime, as in the JAX package where
+     ``global_worker`` is None);
   4. :func:`auto_report_metrics` and :func:`publish_report_summary`, the
      ``telemetry/*`` keys a trainer's report attaches.
 
@@ -46,6 +47,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import sys
 import tempfile
 import threading
 import time
@@ -429,10 +431,11 @@ class StepRecorder:
 
     def _emit_step_span(self, duration_s, steps, tokens, compile_step,
                         start_wall):
-        """The span of one step call, ``(name, start, end, trace context,
-        attributes)`` as the JAX package hands it to its worker's task-event
-        buffer. The port has no runtime worker yet (ROADMAP Queue A item
-        11), so the span goes nowhere; it is returned (None on an error)."""
+        """One SPAN task event per step call, ``(name, start, end, trace
+        context, attributes)``, handed to this process's runtime worker (the
+        timeline renders step boundaries beside task execution) when there
+        is one, as in the JAX package; returned either way (None on an
+        error)."""
         try:
             end = self._wall()
             start = start_wall if start_wall is not None else end - duration_s
@@ -445,6 +448,12 @@ class StepRecorder:
             attrs = {"step": self.steps, "num_steps": steps}
             if tokens:
                 attrs["tokens"] = tokens
+            # no import: a process that never loaded the runtime has no
+            # worker, and the runtime's modules are not free to import
+            worker_mod = sys.modules.get("ray_tpu_torch._private.worker")
+            w = getattr(worker_mod, "global_worker", None)
+            if w is not None:
+                w.task_events.record_span(name, start, end, ctx, attrs)
             return name, start, end, ctx, attrs
         except Exception:
             return None

@@ -1,19 +1,23 @@
-"""Application metrics: Counter, Gauge, Histogram.
+"""User-defined application metrics: Counter, Gauge, Histogram.
 
 A copy of ``ray_tpu/util/metrics.py`` (the port imports nothing of the JAX
-package). Updates are recorded in a process-global table keyed by name and
-tags; :func:`drain_records` returns a snapshot (counters and histograms as
-deltas since the last drain, gauges as their last value) and
-:func:`restore_records` merges a drained snapshot back. The port has no
-runtime yet, so nothing flushes the table: a caller (a test, a bench, the
-card's smoke run) reads it with ``drain_records``.
+package; reference: python/ray/util/metrics.py:19). Metric updates are
+recorded in a process-global table keyed by name and tags. In a worker or
+driver of the port's runtime they are pushed to the GCS with the periodic
+task-event flush; the GCS aggregates them (summing counters, last-write
+gauges, bucket-merging histograms) and exports everything on its Prometheus
+/metrics endpoint. Without a runtime, a caller (a test, the card's smoke
+run) reads the table with :func:`drain_records`.
 
 Metric-name stability contract
 ------------------------------
-The series the port publishes keep the JAX package's names, help strings,
-label keys and histogram boundaries, so a dashboard reads either package:
+The framework's own workload series (the JAX package's names, help
+strings, label keys and histogram boundaries) are a public interface:
+dashboards, alerts and the ``/api/train`` / ``/api/serve`` summaries key on
+these exact names and label keys, so renaming or re-labeling any of them is
+a breaking change (add new series instead). The stable set:
 
-  training (train/_telemetry.py, labels: run)
+  training (train/_telemetry.py, labels: run, +WorkerId/JobId at flush)
     ray_tpu_train_step_seconds         histogram, wall time per step
     ray_tpu_train_steps_total          counter
     ray_tpu_train_tokens_per_second    gauge
@@ -21,8 +25,18 @@ label keys and histogram boundaries, so a dashboard reads either package:
     ray_tpu_train_mfu_ratio            gauge, 0-1
     ray_tpu_train_goodput_ratio        gauge, 0-1
     ray_tpu_train_compile_seconds      gauge, cumulative
-    ray_tpu_train_last_step_seconds    gauge (publish_report_summary)
+    ray_tpu_train_last_step_seconds    gauge (driver-side re-publish)
     ray_tpu_train_hbm_bytes_in_use     gauge, labels +device (CUDA only)
+
+  serving (serve/_replica.py + serve/_handle.py, labels: deployment
+  [, replica]; the serve deployment comes to the port later)
+    ray_tpu_serve_requests_total                 counter
+    ray_tpu_serve_request_errors_total           counter
+    ray_tpu_serve_inflight_requests              gauge
+    ray_tpu_serve_queue_depth                    gauge
+    ray_tpu_serve_request_latency_seconds        histogram (replica-side)
+    ray_tpu_serve_handle_latency_seconds         histogram (caller-side)
+    ray_tpu_serve_handle_requests_total          counter
 
   llm serving (serve/llm/engine.py, labels: deployment, replica)
     ray_tpu_llm_tokens_per_s           gauge, generated tokens/s (EMA
@@ -36,11 +50,95 @@ label keys and histogram boundaries, so a dashboard reads either package:
     ray_tpu_llm_prefix_hit_rate        gauge, 0-1 cumulative fraction of
                                        looked-up prompt tokens served
                                        from the shared-prefix KV index
-                                       (only with the prefix cache on)
+                                       (only published with
+                                       RTPU_TORCH_llm_prefix_cache on)
     ray_tpu_llm_spec_acceptance        gauge, 0-1 cumulative fraction of
                                        proposed draft tokens the target
-                                       model accepted (only when a draft
-                                       model is loaded)
+                                       model accepted (only published
+                                       when a draft model is loaded)
+
+  profiling plane (_private/watchdog.py, labels: trigger — the incident
+  kind or trigger that caused the capture: slow_step, stuck_task, ...)
+    ray_tpu_profile_captures_total               counter, automatic
+                                                 cluster-profile captures
+
+  perf regression plane (_private/perf_gate.py + _private/watchdog.py)
+    ray_tpu_perf_regressions_total     counter, labels: metric — gate
+                                       comparisons landing beyond the
+                                       noise band (perf check/compare)
+    ray_tpu_perf_gate_ratio            gauge, labels: metric — latest
+                                       current/baseline ratio per metric
+    ray_tpu_perf_compile_storms_total  counter — jit_cache_miss_storm
+                                       incidents raised by the watchdog
+
+  chaos / robustness plane (_private/chaos.py + serve failover paths)
+    ray_tpu_chaos_injections_total     counter, labels: site, action —
+                                       faults fired by the chaos plane
+                                       (zero unless RTPU_TORCH_chaos_plan is
+                                       armed)
+    ray_tpu_serve_failovers_total      counter, labels: deployment —
+                                       mid-stream llm failovers (the
+                                       remaining generation resubmitted
+                                       to a surviving replica) plus
+                                       ActorDiedError retries of
+                                       idempotent DeploymentHandle calls
+
+  memory observability plane (raylet _collect_metrics, labels: node)
+    ray_tpu_object_store_pinned_bytes  gauge — bytes held by pinned
+                                       primary copies in this node's
+                                       plasma store
+    ray_tpu_object_store_leaked_bytes  gauge — bytes in primaries the
+                                       leak detector confirmed have no
+                                       live owner reference (two-sweep
+                                       cross-check)
+    ray_tpu_memory_rss_bytes           gauge, labels +role
+                                       (raylet|worker|agent) — resident
+                                       set size per process role on the
+                                       node (worker = sum over workers)
+
+  node system series (raylet _collect_metrics, labels: node unless noted
+  — the Grafana cluster panels key on these)
+    ray_tpu_node_resource_total        gauge, labels +resource
+    ray_tpu_node_resource_available    gauge, labels +resource
+    ray_tpu_node_workers               gauge, labels +state (idle|leased)
+    ray_tpu_node_leases                gauge, outstanding worker leases
+    ray_tpu_node_pg_bundles            gauge, placed placement-group
+                                       bundles
+    ray_tpu_node_cpu_percent           gauge
+    ray_tpu_node_mem_used_bytes        gauge
+    ray_tpu_node_mem_total_bytes       gauge
+    ray_tpu_object_store_used_bytes    gauge
+    ray_tpu_object_store_capacity_bytes  gauge
+    ray_tpu_object_store_num_objects   gauge
+    ray_tpu_object_store_evicted_bytes gauge, cumulative
+    ray_tpu_spilled_objects            gauge, objects currently on disk
+    ray_tpu_spilled_bytes              gauge, bytes currently on disk
+    ray_tpu_pulls_in_flight            gauge
+    ray_tpu_worker_rss_bytes           gauge, labels +pid
+
+  GCS system series (gcs/server.py _collect_metrics)
+    ray_tpu_gcs_nodes                  gauge, labels: state
+    ray_tpu_gcs_actors                 gauge, labels: state
+    ray_tpu_gcs_placement_groups       gauge, labels: state
+    ray_tpu_gcs_jobs                   gauge, labels: state
+    ray_tpu_gcs_task_events_buffered   gauge
+    ray_tpu_gcs_incidents_open         gauge
+    ray_tpu_gcs_uptime_seconds         gauge
+
+  dashboard-agent host series (dashboard/agent.py, labels: node)
+    ray_tpu_agent_cpu_percent          gauge
+    ray_tpu_agent_mem_used_bytes       gauge
+    ray_tpu_agent_mem_total_bytes      gauge
+    ray_tpu_agent_uptime_seconds       gauge
+    ray_tpu_agent_disk_used_bytes      gauge
+    ray_tpu_agent_worker_rss_bytes     gauge, labels +pid
+
+The RTPU_TORCH_profile_* / RTPU_TORCH_device_trace_steps /
+RTPU_TORCH_perf_* / RTPU_TORCH_memory_* / RTPU_TORCH_llm_* /
+RTPU_TORCH_chaos_* / RTPU_TORCH_serve_failover_* config flags are likewise
+a stability contract — see the profiling-plane,
+perf-regression-plane, memory-observability-plane, serve.llm and
+chaos-plane sections of ``ray_tpu_torch/_private/config.py``.
 """
 
 from __future__ import annotations
@@ -73,9 +171,8 @@ def _record(kind: str, name: str, help_: str, labels: Dict[str, str], **kw):
 
 
 def drain_records() -> List[dict]:
-    """Returns a snapshot (counters and histograms are cumulative deltas
-    since the last drain); in the JAX package the worker's flush loop calls
-    it, in the port its reader does."""
+    """Called by the worker's flush loop; returns a snapshot (counters and
+    histograms are cumulative deltas since the last drain)."""
     with _lock:
         out = []
         for rec in _records.values():
@@ -90,8 +187,8 @@ def drain_records() -> List[dict]:
 
 
 def restore_records(records: List[dict]) -> None:
-    """Re-merge drained deltas (after a failed flush, or a reader that only
-    looked) so counter/histogram increments are not lost."""
+    """Re-merge drained deltas after a failed flush so counter/histogram
+    increments survive a GCS outage instead of being silently lost."""
     with _lock:
         for snap in records:
             # The flush stamps WorkerId/JobId; strip them to match local keys.

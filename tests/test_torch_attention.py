@@ -286,11 +286,23 @@ _BANNED = ("jax", "jaxlib", "flax", "ray_tpu")
 
 
 def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
+    """Every module of the port (the runtime's too: the GCS, the raylet,
+    the workers, the dashboard agent) imports without JAX and without side
+    effects: no thread, no child process, no signal handler."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, multiprocessing, pkgutil, signal, sys, threading\n"
         "import ray_tpu_torch, chip_smoke\n"
-        "for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}\n"
+        "names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'ray_tpu_torch.api', 'ray_tpu_torch._private.raylet.main',\n"
+        "        'ray_tpu_torch._private.gcs.server', 'ray_tpu_torch._private.worker',\n"
+        "        'ray_tpu_torch._private.workers.fork_server',\n"
+        "        'ray_tpu_torch._native.plasma', 'ray_tpu_torch.dashboard.agent'} <= set(names)\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not multiprocessing.active_children()\n"
+        "assert handlers == {s: signal.getsignal(s) for s in handlers}\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_BANNED!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

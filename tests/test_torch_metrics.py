@@ -3,18 +3,30 @@ against the JAX package's modules, on the CPU.
 
 Both are copies: the same calls on both packages must leave equal records
 (``drain_records``) and equal rings (``dump``, ``format_tail`` with the
-times masked, overflow, ``flush_to_file`` and ``read_tail_file``). Each
-test drains the process-global metric tables it touches before and after
-(putting back what it found) and restores any recorder, signal handler or
-atexit hook it changes, since one xdist worker runs many files in turn.
+times masked, overflow, ``flush_to_file`` and ``read_tail_file``), and the
+two modules have the same public surface. Each test drains the
+process-global metric tables it touches before and after (putting back
+what it found) and restores any recorder, signal handler or atexit hook it
+changes, since one xdist worker runs many files in turn.
+
+The runtime half, on a cluster of the port's runtime: a task's metrics
+reach the GCS through the worker's flush and its Prometheus endpoint
+renders them; the driver's ring holds the runtime's ``task.*`` and
+``obj.put`` events; the raylet's ``DumpFlightRecorder`` RPC returns its
+own ``lease.*`` / ``worker.*`` events and its workers' ``task.running``.
 """
 
 import atexit
 import json
 import re
 import signal
+import time
+import urllib.request
 
 import pytest
+
+import ray_tpu_torch
+from _torch_runtime import ray_start_regular  # noqa: F401
 
 from ray_tpu._private import flight_recorder as jfr
 from ray_tpu.util import metrics as jmetrics
@@ -214,3 +226,88 @@ def test_install_exit_dump_flushes_on_sigterm_and_chains(monkeypatch, tmp_path):
     assert chained == [signal.SIGTERM]
     assert [e["event"] for e in tfr.read_tail_file(path)] == ["llm.finish"]
     assert tfr.get_recorder().dump_path == path
+
+
+# ------------------------------------------------------------ public surface
+
+
+@pytest.mark.parametrize("pair", ["metrics", "flight_recorder"])
+def test_public_surface_equals_jax(pair):
+    jmod, tmod = {"metrics": (jmetrics, tmetrics),
+                  "flight_recorder": (jfr, tfr)}[pair]
+
+    def public(mod):
+        return {n for n in vars(mod) if not n.startswith("_")
+                and getattr(vars(mod)[n], "__module__", mod.__name__) == mod.__name__}
+
+    assert public(tmod) == public(jmod)
+
+
+# ------------------------------------------------------------ runtime half
+
+
+def _fetch(port) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+        return r.read().decode()
+
+
+def test_worker_flush_reaches_the_gcs_endpoint(ray_start_regular):
+    from ray_tpu_torch._private import worker as worker_mod
+
+    @ray_tpu_torch.remote
+    def instrumented():
+        from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+        c = Counter("port_app_requests_total", "requests", tag_keys=("route",))
+        c.inc(3, tags={"route": "/infer"})
+        Gauge("port_app_queue_depth", "queue").set(7)
+        h = Histogram("port_app_latency_s", "latency", boundaries=[0.1, 1.0])
+        h.observe(0.05)
+        h.observe(0.5)
+        return 1
+
+    assert ray_tpu_torch.get(instrumented.remote()) == 1
+    port = worker_mod.global_worker.gcs.ping()["metrics_port"]
+    deadline = time.time() + 20  # flushed on the 1 s task-event cadence
+    text = ""
+    while time.time() < deadline:
+        text = _fetch(port)
+        if "port_app_requests_total" in text:
+            break
+        time.sleep(0.5)
+    assert "port_app_requests_total" in text and 'route="/infer"' in text
+    assert "port_app_queue_depth" in text
+    assert "port_app_latency_s_count" in text and "port_app_latency_s_bucket" in text
+    assert 'ray_tpu_gcs_nodes{state="ALIVE"} 1' in text
+
+
+def test_runtime_events_and_the_dump_rpc(ray_start_regular):
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.rpc import IoThread, RpcClient
+
+    @ray_tpu_torch.remote
+    def f(x):
+        return x + 1
+
+    seq = max((e["seq"] for e in tfr.dump()), default=-1)
+    assert ray_tpu_torch.get([f.remote(i) for i in range(3)]) == [1, 2, 3]
+    ray_tpu_torch.put(b"x" * (1 << 20))
+    names = {e["event"] for e in tfr.dump() if e["seq"] > seq}
+    assert {"task.pending", "task.submitted", "obj.put"} <= names
+    node = worker_mod.global_worker.gcs.get_all_node_info()[0]
+
+    async def dump():
+        client = RpcClient(node["ip"], node["raylet_port"])
+        await client.connect()
+        try:
+            return await client.call("DumpFlightRecorder", {
+                "limit": 500, "include_workers": True}, timeout=30)
+        finally:
+            await client.close()
+
+    reply = IoThread.current().run(dump(), timeout=40)
+    raylet_names = {e["event"] for e in reply["events"]}
+    assert {"lease.grant", "worker.spawn"} & raylet_names
+    assert reply["workers"], "no worker rings collected"
+    worker_names = {e["event"] for w in reply["workers"] for e in w["events"]}
+    assert "task.running" in worker_names

@@ -8,8 +8,10 @@ keys and ``publish_report_summary`` must be equal. Then the port's own
 wiring: a forced ``DeviceTraceController`` window over two CPU
 ``TrainStep`` steps writes a Chrome trace, and ``TrainStep`` makes its
 recorder current and leaves ``train.step`` events in the flight recorder.
-Each test drains the metric tables and restores the current recorders it
-touches.
+On the port's runtime: the recorder hands each span to this process's
+runtime worker as the JAX recorder hands it to its own, and a task's train
+steps reach the cluster timeline. Each test drains the metric tables and
+restores the current recorders it touches.
 """
 
 import json
@@ -20,7 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch
+from _torch_runtime import ray_start_regular  # noqa: F401
 from ray_tpu._private import worker as jworker
+from ray_tpu_torch._private import worker as tworker
 from ray_tpu.train import _telemetry as jtel
 from ray_tpu.util import metrics as jmetrics
 from ray_tpu_torch._private import flight_recorder as tfr
@@ -265,3 +270,41 @@ def test_train_step_records_train_step_events(isolated, telemetry):
         assert sum(r["value"] for r in steps) == 5
     else:
         assert got == ["trace+compile", "dispatch", "multi_step x3"]
+
+
+def test_spans_go_to_the_runtime_worker_like_jax(isolated, monkeypatch):
+    sent = {"jax": [], "port": []}
+    for mod, key in ((jworker, "jax"), (tworker, "port")):
+        monkeypatch.setattr(mod, "global_worker", SimpleNamespace(
+            task_events=SimpleNamespace(
+                record_span=lambda *a, key=key: sent[key].append(a))))
+    clk = FakeClock()
+    j, t = _pair(clk, emit_metrics=False)
+    for rec in (j, t):
+        rec.record_step(0.5, steps=2, tokens=64, compile_step=True)
+        rec.record_step(0.25, steps=1, tokens=32)
+    assert len(sent["jax"]) == len(sent["port"]) == 2
+    for want, got in zip(sent["jax"], sent["port"]):
+        assert got[0] == want[0] and got[1:3] == want[1:3] and got[4] == want[4]
+        assert set(got[3]) == set(want[3])
+
+
+def test_task_train_steps_reach_the_cluster_timeline(isolated, ray_start_regular):
+    import time
+
+    @ray_tpu_torch.remote
+    def steps():
+        from ray_tpu_torch.train import _telemetry
+
+        rec = _telemetry.StepRecorder(emit_metrics=False)
+        rec.record_step(0.01, steps=1, tokens=8, compile_step=True)
+        rec.record_step(0.01, steps=1, tokens=8)
+        return rec.steps
+
+    assert ray_tpu_torch.get(steps.remote()) == 2
+    deadline = time.time() + 20  # flushed on the 1 s task-event cadence
+    names = set()
+    while time.time() < deadline and not {"train_step", "train_step.compile"} <= names:
+        names = {e.get("name") for e in ray_tpu_torch.timeline()}
+        time.sleep(0.5)
+    assert {"train_step", "train_step.compile"} <= names
