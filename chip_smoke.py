@@ -139,12 +139,32 @@ script exits non-zero:
              spec_k=4): streams equal phase 9's same-seed run (near-tie
              rule) and, where all are equal, its acceptance equal too;
              every process the runtime started is stopped
+ 17. trainer  the trainer on the runtime (a new init(num_cpus=4)):
+             TorchTrainer(loop, ScalingConfig(num_workers=1, use_gpu=True),
+             RunConfig(storage_path=<tmp>)).fit(), a one-trial Tune run
+             whose trial actor (no card, no torch) reserves a placement
+             group of one {"GPU": 1, "CPU": 1} bundle and starts one worker
+             on its leased card; the loop trains GPT-2-124M as in phase 7
+             (bf16, B = 16, T = 1024, phase 7's seed and batch: a warm-up
+             and five timed steps, each reported with its loss, ms, and the
+             worker's 24 / 12 / 12 launches and 0 plain calls), opens a
+             request_device_trace(1) window over one more step, and reports
+             a checkpoint of the model's state dict with its digest. Checks:
+             the losses within 1e-3 relative of phase 7's and falling, the
+             worker's CUDA_VISIBLE_DEVICES equal to its accelerator ids,
+             the Result's checkpoint loaded on the CPU bitwise equal to the
+             digest, the ray_tpu_train_* gauges in the GCS from the driver
+             after fit(), the trace window registered with the GCS. Prints
+             fit()'s start-up until the first report (the trial actor, the
+             placement group, the worker's lease, its torch import and CUDA
+             context, the model build and warm-up step), the median step
+             beside phase 7's and fit()'s total beside its steps' sum
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
 train, MoE on the mesh, the pipeline, the runtime's actor and task, the
-two deployments; every full-width path must show 0 plain calls) and, last,
-``{"ok": true, "device": ...}``.
+two deployments, the trainer; every full-width path must show 0 plain
+calls) and, last, ``{"ok": true, "device": ...}``.
 
 With ``--ranks N`` it needs N cards and runs, after the device and build
 phases, only the mesh path across them: N processes, one card each, over
@@ -167,7 +187,15 @@ RANKS_PIPE_MESHES ({"dp": 2, "pp": 2}, {"pp": 4}) beside one card's run
 at dp 1 x pp 1 (made by the parent process on card 0 before the ranks
 start), with a 4-layer fp32 step on each against that card's; and a
 GPT-2-124M-width model with 2 heads trains one fp32 step at {"tp": 4}
-(each head computed by 2 ranks) against one card. Last, the port's
+(each head computed by 2 ranks) against one card. Then, in the main
+process, TorchTrainer with N use_gpu workers, one card each (distinct
+CUDA_VISIBLE_DEVICES), over one NCCL group the trainer brings up:
+GPT-2-124M bf16 on make_mesh({"dp": N}) at the global B = 16 x T = 1024
+(24 / 12 / 12 launches and no plain call per rank and step, losses
+within 1e-3 relative of the dp N run above, step times beside its
+median), and one fp32 step of the 4-layer
+GPT-2-124M-width model on that mesh against the one-device step on each
+card (1e-4 relative, 2 * lr). Last, the port's
 runtime on the N cards: init detects N GPUs, and N / 2 actors of
 num_gpus=2 get disjoint pairs covering them all, each seeing 2 cards;
 then llm.deploy(model="gpt2", num_replicas=N) puts N replicas on N
@@ -293,6 +321,7 @@ RUNTIME_TRAIN_STEPS = 3       # the GPU task's steps, the first its warm-up
 RUNTIME_LOSS_RTOL = 1e-3      # bf16: its losses vs the train phase's same steps
 RUNTIME_OBJECT_NUMEL = 128 * 2**20   # a 256 MiB bf16 tensor
 RUNTIME_STOP_S = 30           # the runtime's processes' time to leave
+TRAINER_LOSS_RTOL = 1e-3      # bf16: the trainer's losses vs the same steps run without it
 BIG_BH_SHAPE = (5462, 12, 16, 64)
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
@@ -2082,6 +2111,349 @@ def phase_serve_deploy(card: str, serve, runtime, spec, llama_prompts, llama_cpu
     return res
 
 
+# --------------------------------------------------------- 17. the trainer
+
+
+def _trainer_class():
+    """``TorchTrainer`` with two timing marks, defined here and sent to the
+    trial actor by value: when the trial actor starts the run
+    (``_fit_direct``) and when its worker group is placed
+    (``_on_group_start``, after the placement group is reserved and the
+    workers are submitted). Each mark is a line of JSON appended to
+    ``marks_path``; nothing else changes."""
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    class MarkedTrainer(TorchTrainer):
+        marks_path = ""
+
+        def _mark(self, label: str) -> None:
+            import os
+
+            with open(self.marks_path, "a") as f:
+                f.write(json.dumps({"label": label, "t": time.time(),
+                                    "pid": os.getpid()}) + "\n")
+
+        def _fit_direct(self, report_callback=None):
+            self._mark("trial_start")
+            return TorchTrainer._fit_direct(self, report_callback)
+
+        def _on_group_start(self, group):
+            self._mark("group_placed")
+            TorchTrainer._on_group_start(self, group)
+
+    return MarkedTrainer
+
+
+def _worker_start():
+    """A train worker's first seconds, timed from inside its loop: the loop's
+    start (wall clock), its ``import torch``, and the CUDA context on the
+    card ``train.torch.get_device()`` names."""
+    import os
+
+    started = time.time()
+    t0 = time.perf_counter()
+    import torch as _torch
+
+    import_s = time.perf_counter() - t0
+    import ray_tpu_torch
+    from ray_tpu_torch import train as rtrain
+
+    device = rtrain.torch.get_device()
+    t0 = time.perf_counter()
+    _torch.ones(1, device=device).sum().item()
+    return device, {
+        "loop_start": started, "import_torch_s": import_s,
+        "cuda_context_s": time.perf_counter() - t0,
+        "device": str(device), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "accelerator_ids": ray_tpu_torch.get_runtime_context().get_accelerator_ids()["GPU"],
+        "device_count": _torch.cuda.device_count()}
+
+
+def _trainer_loop(config):
+    """The loop of the trainer phase, run by the one ``use_gpu`` worker:
+    GPT-2-124M at full width from the train phase's seed and batch, bf16
+    compute over fp32 master weights; one warm-up step and TRAIN_STEPS timed
+    steps, each reported with its loss, ms, launches and plain calls; one
+    step in a device-trace window; then a checkpoint of the model's state
+    dict with its digest. It reaches no torch through its globals, so the
+    trial actor that unpickles it never imports torch."""
+    import os
+    import shutil
+    import tempfile
+
+    device, start = _worker_start()
+    t0 = time.perf_counter()
+    import torch as _torch
+
+    from ray_tpu_torch import train as rtrain
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.train_step import TrainStep
+    from ray_tpu_torch.train import _telemetry
+
+    cfg = GPT2Config.gpt2_124m()
+    ts = TrainStep(cfg, device=device)
+    state = ts.init(_torch.Generator().manual_seed(0))
+    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, TRAIN_BATCH)
+    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    start["build_s"] = time.perf_counter() - t0
+    for step in range(1 + TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)   # ends in a synchronise (telemetry)
+        ms = (time.perf_counter() - t0) * 1e3
+        rtrain.report({**start, "step": step, "n_layer": cfg.n_layer,
+                       "loss": m["loss"].item(),
+                       "grad_norm": m["grad_norm"].item(), "step_ms": ms,
+                       "counts": list(read_counts()), "reported_at": time.time()})
+    if not _telemetry.request_device_trace(1, config["trace_dir"]):
+        raise AssertionError("no current recorder to open a trace window")
+    t0 = time.perf_counter()
+    state, m = ts.step(state, batch)
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    params = {k: v.detach().cpu() for k, v in state["params"].state_dict().items()}
+    ckpt = tempfile.mkdtemp(prefix="trainer_ckpt_")
+    try:
+        _torch.save(params, os.path.join(ckpt, "model.pt"))
+        rtrain.report({"step": "checkpoint", "digest": _params_digest(params),
+                       "traced_step_ms": traced_ms,
+                       "trace": ts.telemetry.device_trace.last_trace},
+                      checkpoint=rtrain.Checkpoint(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _params_digest(params) -> str:
+    """sha256 of a state dict of CPU tensors: each name and its bytes, in
+    name order."""
+    sha = hashlib.sha256()
+    for k in sorted(params):
+        sha.update(k.encode())
+        sha.update(params[k].numpy().tobytes())
+    return sha.hexdigest()
+
+
+def phase_trainer(card: str, train):
+    """``TorchTrainer(...).fit()`` on the card (a new ``init(num_cpus=4)``):
+    a one-trial Tune run, its trial actor, a placement group of one
+    ``{"GPU": 1, "CPU": 1}`` bundle, one worker on its leased card running
+    :func:`_trainer_loop`. Checks: 24 / 12 / 12 launches and no plain call
+    a step in the worker, CUDA_VISIBLE_DEVICES equal to its accelerator
+    ids, losses within TRAINER_LOSS_RTOL of the train phase's same steps
+    and falling, the Result's checkpoint loaded on the CPU bitwise equal to
+    the worker's digest, the ray_tpu_train_* gauges in the GCS from the
+    driver, and the worker's trace window registered with the GCS (as the
+    dashboard lists it, ``profiling.list_registered``). Prints the
+    start-up split and the step times beside the train phase's."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import profiling
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    rt.init(num_cpus=4)
+    try:
+        trainer = _trainer_class()(
+            _trainer_loop,
+            train_loop_config={"trace_dir": str(Path(scratch) / "trace")},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=scratch, name="trainer"))
+        trainer.marks_path = str(Path(scratch) / "marks.jsonl")
+        fit_start = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - fit_start
+        marks = {m["label"]: m["t"] for m in map(json.loads, open(trainer.marks_path))}
+        gcs = worker_mod.global_worker.gcs
+        worker_mod.global_worker.flush_user_metrics_sync()
+        gauges = {r["name"]: r["value"] for r in gcs.call(
+            "GetUserMetrics", {"prefix": "ray_tpu_train_"})["records"]
+            if r["kind"] == "gauge" and r["labels"].get("run") == "trainer"}
+        traces = profiling.list_registered(gcs, "device_trace")
+        history = result.metrics_history
+        steps = [h for h in history if isinstance(h.get("step"), int)]
+        last = history[-1]
+        digest = _params_digest(torch.load(Path(result.checkpoint.path) / "model.pt",
+                                           map_location="cpu"))
+    finally:
+        stop_runtime(rt)
+        import shutil
+
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    first = steps[0]
+    want = [2 * first["n_layer"], first["n_layer"], first["n_layer"], 0]
+    losses = [s["loss"] for s in steps]
+    ref = train["losses"][:len(losses)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    step_ms = [s["step_ms"] for s in steps]
+    timed = step_ms[1:]
+    startup = {
+        "trial_actor_s": marks["trial_start"] - fit_start,
+        "placement_group_s": marks["group_placed"] - marks["trial_start"],
+        "worker_lease_s": first["loop_start"] - marks["group_placed"],
+        "worker_import_torch_s": first["import_torch_s"],
+        "worker_cuda_context_s": first["cuda_context_s"],
+        "build_s": first["build_s"], "warm_up_step_s": first["step_ms"] / 1e3,
+        "fit_to_first_report_s": first["reported_at"] - fit_start}
+    res = {"startup": startup, "fit_s": fit_s, "losses": losses,
+           "train_phase_losses": ref, "loss_max_rel_diff": max(rel),
+           "step_ms": step_ms, "median_step_ms": statistics.median(timed),
+           "train_phase_median_step_ms": train["median_step_ms"],
+           "sum_step_ms": sum(step_ms) + last["traced_step_ms"],
+           "counts": [s["counts"] for s in steps],
+           "launches": [sum(s["counts"][i] for s in steps[1:]) for i in range(3)],
+           "plain_calls": sum(s["counts"][3] for s in steps),
+           "visible": first["visible"], "accelerator_ids": first["accelerator_ids"],
+           "device": first["device"], "device_count": first["device_count"],
+           "checkpoint_digest_equal": digest == last["digest"], "gauges": gauges,
+           "trace_listed": any(t["path"] == str(Path(scratch) / "trace") for t in traces),
+           "reports": len(history)}
+    log(f"[trainer] TorchTrainer.fit() of GPT-2-124M (bf16, batch {TRAIN_BATCH}) on one "
+        f"leased card: {fit_s:.2f} s in all against {res['sum_step_ms'] / 1e3:.2f} s "
+        f"of steps; until the first report {startup['fit_to_first_report_s']:.2f} s: "
+        f"trial actor {startup['trial_actor_s']:.2f} s, placement group and worker "
+        f"submission {startup['placement_group_s']:.2f} s, the worker's lease "
+        f"{startup['worker_lease_s']:.2f} s, its import torch "
+        f"{startup['worker_import_torch_s']:.2f} s, its CUDA context "
+        f"{startup['worker_cuda_context_s']:.2f} s, the port's imports and the "
+        f"model's build {startup['build_s']:.2f} s, the warm-up step "
+        f"{startup['warm_up_step_s']:.2f} s on {card}")
+    log(f"[trainer] steps {[round(x, 2) for x in step_ms]} ms (the first the warm-up), "
+        f"median {res['median_step_ms']:.2f} ms beside the train phase's "
+        f"{train['median_step_ms']:.2f}; losses {[round(x, 4) for x in losses]} vs the "
+        f"train phase's {[round(x, 4) for x in ref]}: largest relative difference "
+        f"{max(rel):.3g} (limit {TRAINER_LOSS_RTOL}); counts per step (fwd, dq, dkv, "
+        f"plain) {res['counts']}; the worker's CUDA_VISIBLE_DEVICES {first['visible']!r}, "
+        f"accelerator ids {first['accelerator_ids']}, {first['device_count']} card(s), "
+        f"device {first['device']}")
+    log(f"[trainer] checkpoint bitwise equal on the CPU: "
+        f"{res['checkpoint_digest_equal']}; driver gauges {json.dumps(gauges)}; trace "
+        f"window registered with the GCS: {res['trace_listed']}")
+    if (any(s["counts"] != want for s in steps) or max(rel) > TRAINER_LOSS_RTOL
+            or not losses[-1] < losses[0] or len(steps) != 1 + TRAIN_STEPS
+            or first["visible"] is None or [first["visible"]] != first["accelerator_ids"]
+            or first["device_count"] != 1 or not res["checkpoint_digest_equal"]
+            or "ray_tpu_train_tokens_per_second" not in gauges or not res["trace_listed"]):
+        raise AssertionError(f"the trainer phase: {res}")
+    return res
+
+
+def _trainer_ranks_loop(config):
+    """The loop of ``--ranks``' trainer: every worker on its leased card, one
+    NCCL group over them (brought up by ``TorchTrainer``); GPT-2-124M bf16
+    on ``make_mesh({"dp": N})`` at the global TRAIN_BATCH, a warm-up and
+    RANKS_TRAIN_STEPS timed steps with each step's counts, then one fp32
+    4-layer step on the mesh against the one-device step on each card.
+    First, an all-reduce of 256 MB of fp32 over the trainer's group, as the
+    ranks path times one over its own. Rank 0 reports what every rank saw."""
+    import torch.distributed as dist
+
+    device, start = _worker_start()
+    world = dist.get_world_size()
+    x = torch.ones(64 << 20, device=device)
+    start["all_reduce_256mb_ms"] = cuda_ms(lambda: dist.all_reduce(x), iters=5, warmup=2)
+    start["all_reduce_bus_gb_s"] = (2 * (world - 1) / world * x.numel() * 4
+                                    / (start["all_reduce_256mb_ms"] / 1e3) / 1e9)
+    del x
+    from ray_tpu_torch import train as rtrain
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.train_step import TrainStep
+
+    mesh = make_mesh({"dp": world}, device=device)
+    cfg = GPT2Config.gpt2_124m()
+    ts = TrainStep(cfg, mesh, device=device)
+    state = ts.init(torch.Generator().manual_seed(0))
+    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, TRAIN_BATCH)
+    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    losses, counts, step_ms = [], [], []
+    for _ in range(1 + RANKS_TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(list(read_counts()))
+        losses.append(m["loss"].item())
+    del ts, state, batch
+    torch.cuda.empty_cache()
+    parity = mesh_parity(config["card"], f"gpt2-124m width on {{'dp': {world}}} "
+                         "under TorchTrainer", GPT2Config.gpt2_124m(
+                             n_layer=MESH_PARITY_LAYERS, dtype=torch.float32),
+                         mesh, RANKS_PARITY_BATCH, RANKS_REL_TOL, tag="trainer_ranks")
+    mine = {**start, "losses": losses, "counts": counts, "step_ms": step_ms,
+            "n_layer": cfg.n_layer,
+            "parity": parity, "rank": dist.get_rank(), "backend": dist.get_backend()}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    rtrain.report({"ranks": every})
+
+
+def trainer_ranks(card: str, world: int, dp_run, bus_gb_s):
+    """``--ranks N``: ``TorchTrainer`` with N ``use_gpu`` workers, one card
+    each, over the group its default ``TorchConfig`` picks for card workers
+    (NCCL) (:func:`_trainer_ranks_loop`); checks distinct cards, 24 / 12 /
+    12 launches and no plain call per rank and step, the losses against
+    ``dp_run`` (the ranks path's run on the same ``{"dp": N}`` mesh, seed
+    and batch) within TRAINER_LOSS_RTOL, and the fp32 step against one
+    card."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
+
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_ranks_")
+    rt.init(num_cpus=4)
+    try:
+        t0 = time.time()
+        result = TorchTrainer(
+            _trainer_ranks_loop, train_loop_config={"card": card},
+            scaling_config=ScalingConfig(num_workers=world, use_gpu=True),
+            run_config=RunConfig(storage_path=scratch.name, name="trainer_ranks"),
+            torch_config=TorchConfig()).fit()
+        fit_s = time.time() - t0
+    finally:
+        stop_runtime(rt)
+        scratch.cleanup()
+    every = result.metrics["ranks"]
+    L = every[0]["n_layer"]
+    want = [2 * L, L, L, 0]
+    dp_median_ms, dp_losses = dp_run["median_step_ms"], dp_run["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(every[0]["losses"], dp_losses)]
+    res = {"fit_s": fit_s, "cards": sorted(r["visible"] for r in every),
+           "backends": sorted({r["backend"] for r in every}),
+           "median_step_ms": [statistics.median(r["step_ms"][1:]) for r in every],
+           "ranks_path_dp_median_ms": dp_median_ms,
+           "all_reduce_bus_gb_s": [r["all_reduce_bus_gb_s"] for r in every],
+           "ranks_path_all_reduce_bus_gb_s": bus_gb_s,
+           "losses": every[0]["losses"], "ranks_path_dp_losses": dp_losses,
+           "loss_max_rel_diff": max(rel),
+           "launches": [sum(c[0] for c in r["counts"][1:]) for r in every],
+           "launches_dq": [sum(c[1] for c in r["counts"][1:]) for r in every],
+           "launches_dkv": [sum(c[2] for c in r["counts"][1:]) for r in every],
+           "plain_calls": sum(c[3] for r in every for c in r["counts"]),
+           "parity": [r["parity"] for r in every],
+           "startup": [{k: r[k] for k in ("import_torch_s", "cuda_context_s")}
+                       for r in every]}
+    log(f"[trainer_ranks] TorchTrainer over {world} cards ({res['backends']}): cards "
+        f"{res['cards']}, median step per rank {[round(x, 2) for x in res['median_step_ms']]}"
+        f" ms beside the ranks path's dp {world} median {dp_median_ms} ms; all-reduce "
+        f"of 256 MB over the trainer's group {[round(x, 1) for x in res['all_reduce_bus_gb_s']]}"
+        f" GB/s bus bandwidth beside the ranks path's {bus_gb_s} GB/s; "
+        f"{json.dumps(res)} on {card}")
+    if (res["cards"] != [str(i) for i in range(world)]
+            or res["backends"] != ["nccl"]
+            or len(every[0]["losses"]) != len(dp_losses) or max(rel) > TRAINER_LOSS_RTOL
+            or any(c != want for r in every for c in r["counts"])
+            or any(r["visible"] is None or [r["visible"]] != r["accelerator_ids"]
+                   or r["device_count"] != 1 for r in every)
+            or not all(np.isfinite(res["losses"]))):
+        raise AssertionError(f"the trainer over {world} cards: {res}")
+    return res
+
+
+
 def serve_ranks(world: int):
     """``--ranks N``: ``llm.deploy(model="gpt2", num_replicas=N)`` puts the
     N replicas on N distinct cards; 4 x 8 concurrent streams (the serve
@@ -2358,6 +2730,8 @@ def main_ranks(world: int) -> int:
             p.join()
         scratch.cleanup()
     got[0]["pipeline_one_card"] = {k: v for k, v in pipe_ref.items() if k != "path"}
+    dp = got[0]["meshes"][json.dumps({"dp": world})]
+    got[0]["trainer"] = trainer_ranks(card, world, dp, got[0]["all_reduce_bus_gb_s"])
     got[0]["runtime"] = runtime_ranks(world)
     got[0]["serve"] = serve_ranks(world)
     log(f"[ranks] {json.dumps(got[0])}")
@@ -2397,6 +2771,7 @@ def main() -> int:
     runtime = phase_runtime(card, serve, train)
     serve_deploy = phase_serve_deploy(card, serve, runtime, spec, llama["prompts"],
                                       llama_cpu)
+    trainer = phase_trainer(card, train)
     del llama_cpu
     spec.pop("same_seed_outputs")
     for key in ("prompts", "outputs", "cpu_model"):
@@ -2418,7 +2793,8 @@ def main() -> int:
                    "runtime_serve": runtime["serve_plain_calls"],
                    "runtime_train": runtime["train_plain_calls"],
                    "serve_deploy": serve_deploy["plain_calls"],
-                   "serve_deploy_spec": serve_deploy["spec"]["plain_calls"]}
+                   "serve_deploy_spec": serve_deploy["spec"]["plain_calls"],
+                   "trainer": trainer["plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -2439,7 +2815,8 @@ def main() -> int:
                              "runtime_serve": runtime["serve_launches"],
                              "runtime_train": runtime["train_launches"][0],
                              "serve_deploy": serve_deploy["launches"],
-                             "serve_deploy_spec": serve_deploy["spec"]["launches"]},
+                             "serve_deploy_spec": serve_deploy["spec"]["launches"],
+                             "trainer": trainer["launches"][0]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -2474,7 +2851,8 @@ def main() -> int:
                                                    ("moe_mesh", moe_mesh),
                                                    ("pipeline", pipeline),
                                                    ("runtime_train",
-                                                    {"launches": runtime["train_launches"]}))},
+                                                    {"launches": runtime["train_launches"]}),
+                                                   ("trainer", trainer))},
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
             "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
                                              if c["dtype"] == dt for o in outputs)
@@ -2486,7 +2864,7 @@ def main() -> int:
             "library_ms": bwd_head["library_ms"],
             "plain_calls_by_path": {path: plain_calls[path] for path in
                                     ("train", "llama_train", "moe_train", "mesh",
-                                     "moe_mesh", "pipeline", "runtime_train")},
+                                     "moe_mesh", "pipeline", "runtime_train", "trainer")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -2511,6 +2889,7 @@ def main() -> int:
     log(f"[pipeline] {json.dumps(pipeline)}")
     log(f"[runtime] {json.dumps(runtime)}")
     log(f"[serve_deploy] {json.dumps(serve_deploy)}")
+    log(f"[trainer] {json.dumps(trainer)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ with its plain PyTorch version beside it.
 What is ported so far (the serving and training slices, every model
 family of the JAX zoo, speculative decoding, the metrics and the flight
 recorder, the training step on a mesh of dp, fsdp, tp, sp, ep and pp, the
-runtime's core on one node, and the serve deployment on it):
+runtime's core on one node, the serve deployment on it, and the trainer
+with Tune and placement groups):
 
   api.py, actor.py,      init / remote / get / put / wait / kill / shutdown,
   remote_function.py,    actors and tasks with ``num_gpus`` (copies of the
@@ -75,13 +76,21 @@ runtime's core on one node, and the serve deployment on it):
                          out-of-band LLM token frames, batching,
                          multiplexing, autoscaling; one leased card per
                          LLM replica, torch only in the replicas
+  train/                 TorchTrainer: fit() as a one-trial Tune run, one
+                         worker per {"GPU": 1, "CPU": 1} bundle on its
+                         leased card, one torch.distributed group over the
+                         workers (NCCL on cards); reports, checkpoints,
+                         group restart (copies of the JAX package's Train)
+  tune/                  Tuner, search spaces, TPE, ASHA, HyperBand, median
+                         stopping, PBT (copies)
+  util/placement_group.py  gang reservation of resource bundles
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back. This
 module and the runtime's control plane (the GCS, the raylet, the fork
 server) never import torch: a worker first touches CUDA after its lease's
-``CUDA_VISIBLE_DEVICES`` is set. The trainer (worker groups over the
-runtime) comes later.
+``CUDA_VISIBLE_DEVICES`` is set; importing ``train`` or ``tune`` loads no
+torch either, so a trainer's trial actor never loads it.
 
 Attribute access is lazy (PEP 562), as in ``ray_tpu``: control-plane
 processes that import only their own submodules don't pay for the API.

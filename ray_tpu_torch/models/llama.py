@@ -30,8 +30,11 @@ row-parallel ``wo``/``down``, a vocab-parallel ``tok_emb``, RMSNorm weights
 replicated. A rank holds whole query heads, and the KV heads they read:
 where tp exceeds ``n_kv_head`` (a multiple of it), tp / n_kv_head ranks
 hold the same KV head (``tp_copies``), and the step sums its gradients
-over them. ``repeat_kv`` then repeats only the local heads. RoPE takes
-global positions through ``pos_offset``.
+over them. Where tp is a multiple of ``n_head``, GPT-2's ``head_split``
+applies: tp / n_head ranks compute the same query head, and each feeds its
+own C / tp of the head's output to ``wo``'s plain row split.
+``repeat_kv`` then repeats only the local heads. RoPE takes global
+positions through ``pos_offset``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from ray_tpu_torch.models import _flax
 from ray_tpu_torch.models.gpt2 import (  # noqa: F401
     Dense,
     Embedding,
-    local_heads,
+    head_split,
     loss_fn,
     num_params,
     vocab_parallel_loss,
@@ -154,7 +157,7 @@ def local_kv_heads(n_head: int, n_kv_head: int, tp: Optional[TPGroup]):
     """([first, stop) of the KV heads a tp rank holds, how many tp ranks
     hold each of them): a contiguous part where tp divides ``n_kv_head``;
     where tp is a multiple of it, the one KV head the rank's query heads
-    read, held by tp / n_kv_head ranks."""
+    (:func:`head_split`) read, held by tp / n_kv_head ranks."""
     if tp is None or n_kv_head % tp.size == 0:
         return split_range(n_kv_head, 1 if tp is None else tp.size,
                            0 if tp is None else tp.rank), 1
@@ -162,7 +165,7 @@ def local_kv_heads(n_head: int, n_kv_head: int, tp: Optional[TPGroup]):
         raise ValueError(f"{n_kv_head} KV heads do not split over tp = {tp.size}, "
                          f"nor does tp = {tp.size} repeat them evenly")
     copies = tp.size // n_kv_head
-    first = local_heads(n_head, tp)[0] // (n_head // n_kv_head)
+    first = head_split(n_head, tp)[0] // (n_head // n_kv_head)
     return (first, first + 1), copies
 
 
@@ -173,17 +176,25 @@ class LlamaAttention(nn.Module):
         self.tp = tp
         self.attention = attention_for(cfg)
         hd, dt, C = cfg.head_dim, cfg.dtype, cfg.n_embd
-        first, stop = local_heads(cfg.n_head, tp)
+        first, stop, q_copies = head_split(cfg.n_head, tp)
         (kv_first, kv_stop), copies = local_kv_heads(cfg.n_head, cfg.n_kv_head, tp)
         self.n_head, self.n_kv_head = stop - first, kv_stop - kv_first
         q_rows = torch.arange(first * hd, stop * hd)
         kv_rows = torch.arange(kv_first * hd, kv_stop * hd)
         self.wq = Dense(C, cfg.n_head * hd, dt, device, bias=False, tp=tp, tp_dim=0,
-                        tp_index=q_rows)
+                        tp_index=q_rows, tp_copies=q_copies)
         self.wk = Dense(C, cfg.n_kv_head * hd, dt, device, bias=False, tp=tp, tp_dim=0,
                         tp_index=kv_rows, tp_copies=copies)
         self.wv = Dense(C, cfg.n_kv_head * hd, dt, device, bias=False, tp=tp, tp_dim=0,
                         tp_index=kv_rows, tp_copies=copies)
+        # a query head that several ranks compute: each takes its own
+        # contiguous part of the head's output, as wo's plain row split has it
+        self.out_cols = None
+        if q_copies > 1:
+            width = cfg.n_head * hd // tp.size
+            start = (tp.rank % q_copies) * width
+            self.out_cols = (start, start + width)
+            q_rows = torch.arange(tp.rank * width, (tp.rank + 1) * width)
         self.wo = Dense(cfg.n_head * hd, C, dt, device, bias=False, tp=tp, tp_dim=1,
                         tp_index=q_rows)
 
@@ -205,8 +216,10 @@ class LlamaAttention(nn.Module):
         q, k, v = self.qkv(x, torch.arange(T, device=x.device) + pos_offset)
         rep = self.n_head // self.n_kv_head
         k, v = repeat_kv(k, rep), repeat_kv(v, rep)
-        y = self.attention(q, k, v)
-        return self.wo(y.reshape(B, T, self.n_head * self.cfg.head_dim))
+        y = self.attention(q, k, v).reshape(B, T, self.n_head * self.cfg.head_dim)
+        if self.out_cols is not None:
+            y = y[..., self.out_cols[0]:self.out_cols[1]]
+        return self.wo(y)
 
 
 class LlamaMLP(nn.Module):

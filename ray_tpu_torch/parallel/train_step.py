@@ -176,11 +176,9 @@ def check_mesh(model_cfg, mesh) -> None:
     family, _ = family_of(model_cfg)
     tp = _mesh.axis_size(mesh, "tp")
     fake = TPGroup(None, tp, 0) if tp > 1 else None
+    gpt2.head_split(model_cfg.n_head, fake)
     if family is llama:
-        gpt2.local_heads(model_cfg.n_head, fake)
         llama.local_kv_heads(model_cfg.n_head, model_cfg.n_kv_head, fake)
-    else:
-        gpt2.head_split(model_cfg.n_head, fake)
     ep = _mesh.axis_size(mesh, "ep")
     if family is gpt2_moe and model_cfg.moe.num_experts % ep:
         raise ValueError(f"ep = {ep} does not divide num_experts = "

@@ -22,8 +22,12 @@ It raises the same two flags for a watchdog to pop: a step slower than
 (:meth:`StepRecorder.pop_slow_step`), and a storm of compile steps after
 warm-up (:meth:`StepRecorder.pop_compile_storm`). Its
 :class:`DeviceTraceController` opens a device-trace window over the next
-N step calls with ``torch.profiler`` (CUDA kernels beside the host ops)
-and writes it as a Chrome trace.
+N step calls with ``torch.profiler`` (CUDA kernels beside the host ops),
+writes it as a Chrome trace, and, in a runtime worker, registers it with
+the GCS, where ``profiling.list_registered(gcs, "device_trace")`` lists it
+for the dashboard and scripts. ``publish_report_summary`` lives in the
+torch-free ``_report_gauges`` (the driver and the Tune trial actor call it
+without a card) and is re-exported here.
 
 What differs on the card:
 
@@ -59,6 +63,7 @@ import torch
 
 from ray_tpu_torch._private import flight_recorder as _fr
 from ray_tpu_torch._private.config import CONFIG
+from ray_tpu_torch.train._report_gauges import publish_report_summary  # noqa: F401
 
 # Peak dense matmul throughput per card (bf16 FLOP/s), keyed by substrings of
 # torch.cuda.get_device_name: NVIDIA's H100 SXM data sheet (the SXM part
@@ -587,6 +592,22 @@ class DeviceTraceController:
             except Exception:
                 return
             self.last_trace = trace
+        self._register(path)
+
+    def _register(self, path: str) -> None:
+        """Register the window with the GCS (``profiling.register_device_trace``)
+        when this process is a runtime worker (probed in ``sys.modules``,
+        never imported)."""
+        worker_mod = sys.modules.get("ray_tpu_torch._private.worker")
+        w = worker_mod.global_worker if worker_mod is not None else None
+        if w is None:
+            return
+        try:
+            from ray_tpu_torch._private import profiling
+
+            profiling.register_device_trace(w.gcs, path, steps=self._target)
+        except Exception:
+            pass
 
 
 def read_device_trace(path: str) -> Dict[str, Any]:
@@ -682,35 +703,3 @@ def auto_report_metrics() -> Dict[str, Any]:
     if rec is None:
         return {}
     return {f"telemetry/{k}": v for k, v in rec.summary().items()}
-
-
-_REPORT_GAUGES = {
-    "telemetry/goodput": "ray_tpu_train_goodput_ratio",
-    "telemetry/tokens_per_s": "ray_tpu_train_tokens_per_second",
-    "telemetry/examples_per_s": "ray_tpu_train_examples_per_second",
-    "telemetry/mfu": "ray_tpu_train_mfu_ratio",
-    "telemetry/compile_time_s": "ray_tpu_train_compile_seconds",
-    "telemetry/step_time_s": "ray_tpu_train_last_step_seconds",
-    "telemetry/hbm_bytes_in_use": "ray_tpu_train_hbm_bytes_in_use",
-}
-_report_gauge_objs: Dict[str, Any] = {}
-
-
-def publish_report_summary(metrics: Dict[str, Any], run_name: str = ""):
-    """Re-publish a report's ``telemetry/*`` keys as gauges from the calling
-    process (the one that started a trainer's workers and outlives them)."""
-    try:
-        from ray_tpu_torch.util.metrics import Gauge
-
-        for key, name in _REPORT_GAUGES.items():
-            value = metrics.get(key)
-            if not isinstance(value, (int, float)):
-                continue
-            g = _report_gauge_objs.get(name)
-            if g is None:
-                g = _report_gauge_objs[name] = Gauge(
-                    name, "driver-side rolling train telemetry",
-                    tag_keys=("run",))
-            g.set(float(value), tags={"run": run_name})
-    except Exception:
-        pass  # telemetry must never fail a report round

@@ -287,8 +287,9 @@ _BANNED = ("jax", "jaxlib", "flax", "ray_tpu")
 
 def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     """Every module of the port (the runtime's too: the GCS, the raylet,
-    the workers, the dashboard agent) imports without JAX and without side
-    effects: no thread, no child process, no signal handler."""
+    the workers, the dashboard agent; the trainer, Tune and placement
+    groups) imports without JAX and without side effects: no thread, no
+    child process, no signal handler."""
     code = (
         "import importlib, multiprocessing, pkgutil, signal, sys, threading\n"
         "import ray_tpu_torch, chip_smoke\n"
@@ -299,7 +300,10 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
         "assert {'ray_tpu_torch.api', 'ray_tpu_torch._private.raylet.main',\n"
         "        'ray_tpu_torch._private.gcs.server', 'ray_tpu_torch._private.worker',\n"
         "        'ray_tpu_torch._private.workers.fork_server',\n"
-        "        'ray_tpu_torch._native.plasma', 'ray_tpu_torch.dashboard.agent'} <= set(names)\n"
+        "        'ray_tpu_torch._native.plasma', 'ray_tpu_torch.dashboard.agent',\n"
+        "        'ray_tpu_torch.train.torch', 'ray_tpu_torch.train._trainer',\n"
+        "        'ray_tpu_torch.train._worker_group', 'ray_tpu_torch.tune.controller',\n"
+        "        'ray_tpu_torch.tune.tuner', 'ray_tpu_torch.util.placement_group'} <= set(names)\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not multiprocessing.active_children()\n"
         "assert handlers == {s: signal.getsignal(s) for s in handlers}\n"

@@ -1,9 +1,9 @@
 """Actor tests of the port's runtime.
 
 A copy of tests/test_actors.py run against ``ray_tpu_torch`` (fixtures from
-tests/_torch_runtime.py). ``test_owner_fate_sharing`` keeps its actor half:
-the placement-group half waits for ``util/placement_group`` (ROADMAP item
-11b).
+tests/_torch_runtime.py), ``test_owner_fate_sharing`` whole: an owner's
+child actor and its placement group (``ray_tpu_torch.util.placement_group``)
+both die with it.
 """
 
 import asyncio
@@ -182,9 +182,11 @@ def test_actor_infeasible_resources(ray_start_regular):
 
 
 def test_owner_fate_sharing(ray_start_regular):
-    """Actors created by a worker die with it (reference:
-    gcs_actor_manager OnWorkerDead destroys owned actors)."""
+    """Actors and placement groups created by a worker die with it
+    (reference: gcs_actor_manager OnWorkerDead destroys owned actors)."""
     import time as _time
+
+    from ray_tpu_torch.util.placement_group import placement_group_table
 
     @ray_tpu_torch.remote
     class Child:
@@ -194,20 +196,29 @@ def test_owner_fate_sharing(ray_start_regular):
     @ray_tpu_torch.remote
     class Owner:
         def setup(self):
+            from ray_tpu_torch.util.placement_group import placement_group
+
             self.child = Child.options(num_cpus=0).remote()
             ray_tpu_torch.get(self.child.ping.remote())
-            return self.child
+            self.pg = placement_group([{"CPU": 1}])
+            self.pg.ready(timeout=30)
+            return self.child, self.pg.id
 
     owner = Owner.remote()
-    child = ray_tpu_torch.get(owner.setup.remote())
+    child, pg_id = ray_tpu_torch.get(owner.setup.remote())
     assert ray_tpu_torch.get(child.ping.remote()) == "ok"
+    assert placement_group_table()[pg_id.hex()]["state"] == "CREATED"
     ray_tpu_torch.kill(owner)
     deadline = _time.time() + 30
-    child_dead = False
-    while _time.time() < deadline and not child_dead:
+    child_dead = pg_gone = False
+    while _time.time() < deadline and not (child_dead and pg_gone):
         try:
             ray_tpu_torch.get(child.ping.remote(), timeout=5)
         except Exception:
             child_dead = True
+        table = placement_group_table()
+        rec = table.get(pg_id.hex()) if isinstance(table, dict) else None
+        pg_gone = rec is None or rec.get("state") == "REMOVED"
         _time.sleep(0.2)
     assert child_dead, "child actor outlived its owner"
+    assert pg_gone, "placement group outlived its owner"

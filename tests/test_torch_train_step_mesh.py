@@ -5,7 +5,8 @@ never import JAX) train the fp32 tiny configs of the JAX package's tests,
 GPT-2 on the nine meshes of ``tests/test_train_step.py`` ({"tp": 8} among
 them: gpt2-tiny's 4 heads each computed by 2 tp ranks) and Llama (4 query
 heads, 2 KV heads) on the five of
-``tests/test_llama.py``, B = 8, T = 64, each from the JAX initial state
+``tests/test_llama.py`` and on {"tp": 8} (each query head computed by 2 tp
+ranks, each KV head held by 4), B = 8, T = 64, each from the JAX initial state
 carried across with ``load_flax_state``, at the JAX tests' settings
 (GPT-2 three steps at lr 1e-3, Llama four at 5e-3). Each mesh's losses
 and grad_norms are held to 1e-4 relative of the JAX ``TrainStep``,
@@ -43,7 +44,7 @@ GPT2_MESHES = [{"dp": 8}, {"fsdp": 8}, {"dp": 2, "fsdp": 4}, {"dp": 2, "tp": 4},
                {"sp": 8}, {"dp": 2, "sp": 4}, {"dp": 2, "fsdp": 2, "tp": 2},
                {"dp": 2, "sp": 2, "tp": 2}, {"tp": 8}]
 LLAMA_MESHES = [{"dp": 8}, {"fsdp": 8}, {"tp": 4, "dp": 2}, {"sp": 4, "dp": 2},
-                {"dp": 2, "fsdp": 2, "tp": 2}]
+                {"dp": 2, "fsdp": 2, "tp": 2}, {"tp": 8}]
 # (family, vocab) -> the meshes whose JAX reference runs on that same mesh
 SAME_MESH = {("gpt2", 512): [{"dp": 2, "fsdp": 2, "tp": 2}, {"dp": 2, "sp": 2, "tp": 2}],
              ("llama", 512): [{"dp": 2, "fsdp": 2, "tp": 2}]}
