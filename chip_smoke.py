@@ -159,12 +159,33 @@ script exits non-zero:
              placement group, the worker's lease, its torch import and CUDA
              context, the model build and warm-up step), the median step
              beside phase 7's and fit()'s total beside its steps' sum
+ 18. data     the trainer fed by a Dataset (a new init(num_cpus=5): the
+             worker's bundle holds one CPU, the map and shuffle tasks lease
+             the other four): ray_tpu_torch.data.from_numpy of token rows
+             (phase 7's batch from default_rng(0), once per step of phase
+             7's run, one block each; then 8 batches of further draws in 4
+             blocks, shuffled with random_shuffle(seed=0)), split into idx
+             / targets by map_batches tasks; TorchTrainer(loop, datasets=
+             {"train": ds}, ScalingConfig(num_workers=1, use_gpu=True)).fit()
+             trains GPT-2-124M as in phase 7 with every batch from
+             get_dataset_shard("train").iter_torch_batches(batch_size=16)
+             (pinned host memory, non-blocking copies one batch ahead on a
+             side stream), a trace window over two steps and the next()
+             between them. Checks: 24 / 12 / 12 launches and no plain call
+             a step, every batch on cuda as int64, the first six losses
+             within 1e-3 relative of phase 7's and falling, the digest of
+             every row the worker got equal to ds.take_all()'s on the
+             driver. Prints (not checked) the host ms each next() waited,
+             each batch's H2D copy ms from CUDA events, the step ms beside
+             phase 7's median, the window's busy share, and the tokens/s
+             the iterator alone delivers to the card beside what a step
+             consumes
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
 train, MoE on the mesh, the pipeline, the runtime's actor and task, the
-two deployments, the trainer; every full-width path must show 0 plain
-calls) and, last, ``{"ok": true, "device": ...}``.
+two deployments, the trainer, the trainer fed by a Dataset; every
+full-width path must show 0 plain calls) and, last, ``{"ok": true, "device": ...}``.
 
 With ``--ranks N`` it needs N cards and runs, after the device and build
 phases, only the mesh path across them: N processes, one card each, over
@@ -190,7 +211,10 @@ GPT-2-124M-width model with 2 heads trains one fp32 step at {"tp": 4}
 (each head computed by 2 ranks) against one card. Then, in the main
 process, TorchTrainer with N use_gpu workers, one card each (distinct
 CUDA_VISIBLE_DEVICES), over one NCCL group the trainer brings up:
-GPT-2-124M bf16 on make_mesh({"dp": N}) at the global B = 16 x T = 1024
+GPT-2-124M bf16 on make_mesh({"dp": N}) at the global B = 16 x T = 1024,
+each rank's batches from its shard of a Dataset passed as datasets=
+(equal blocks, a multiple of N; the ranks' rows disjoint and together
+the dataset's, gathered with all_gather_object)
 (24 / 12 / 12 launches and no plain call per rank and step, losses
 within 1e-3 relative of the dp N run above, step times beside its
 median), and one fp32 step of the 4-layer
@@ -322,6 +346,10 @@ RUNTIME_LOSS_RTOL = 1e-3      # bf16: its losses vs the train phase's same steps
 RUNTIME_OBJECT_NUMEL = 128 * 2**20   # a 256 MiB bf16 tensor
 RUNTIME_STOP_S = 30           # the runtime's processes' time to leave
 TRAINER_LOSS_RTOL = 1e-3      # bf16: the trainer's losses vs the same steps run without it
+DATA_TAIL_BATCHES = 8         # shuffled batches after the train phase's copies
+DATA_TAIL_BLOCKS = 4
+DATA_TRACED_STEPS = 2         # the trace window: two steps and the next() between them
+DATA_CPUS = 5                 # the worker's bundle holds 1; 4 for map and shuffle tasks
 BIG_BH_SHAPE = (5462, 12, 16, 64)
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
@@ -2339,13 +2367,232 @@ def phase_trainer(card: str, train):
     return res
 
 
+# ------------------------------------------------------------ 18. data
+
+
+def _split_tokens(block):
+    """A map_batches stage: rows of T + 1 tokens into ``idx`` (the first T)
+    and ``targets`` (the last T), as phase 7 builds its batch."""
+    return {"idx": block["tokens"][:, :-1], "targets": block["tokens"][:, 1:]}
+
+
+def data_dataset(rd, vocab: int):
+    """The data phase's Dataset: phase 7's TRAIN_BATCH (the same draws of
+    ``default_rng(0)``, each row followed by its first token, so the split
+    gives phase 7's idx and np.roll'd targets) once per step of phase 7's
+    run, one block each, then DATA_TAIL_BATCHES batches of further draws
+    in DATA_TAIL_BLOCKS blocks, shuffled with seed 0; both mapped into idx
+    / targets by tasks."""
+    b, t = TRAIN_BATCH
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, vocab, TRAIN_BATCH)
+    rows = np.concatenate([idx, idx[:, :1]], axis=1)
+    head = rd.from_numpy(np.tile(rows, (1 + TRAIN_STEPS, 1)), column="tokens",
+                         override_num_blocks=1 + TRAIN_STEPS)
+    tail = rd.from_numpy(rng.integers(0, vocab, (DATA_TAIL_BATCHES * b, t + 1)),
+                         column="tokens", override_num_blocks=DATA_TAIL_BLOCKS)
+    return head.map_batches(_split_tokens).union(
+        tail.map_batches(_split_tokens).random_shuffle(seed=0))
+
+
+def _row_digests(batch):
+    """sha256 of each row of a batch (its idx, then its targets, as int64
+    bytes), in row order."""
+    idx, targets = (np.ascontiguousarray(np.asarray(batch[k]), dtype=np.int64)
+                    for k in ("idx", "targets"))
+    return [hashlib.sha256(idx[i].tobytes() + targets[i].tobytes()).hexdigest()
+            for i in range(len(idx))]
+
+
+def _data_loop(config):
+    """The loop of the data phase, run by the one ``use_gpu`` worker:
+    GPT-2-124M as in phase 7, every batch from
+    ``get_dataset_shard("train").iter_torch_batches(batch_size=16)`` on the
+    worker's card. Each step is reported with the host ms its ``next()``
+    waited, its ms, loss, counts and the batch's (device, dtype); a trace
+    window covers DATA_TRACED_STEPS steps and the ``next()`` between them;
+    then the digest of every row the worker got, each batch's H2D copy ms,
+    the window's numbers, and the tokens/s the iterator delivers to the
+    card when iterated alone. Like the trainer phase's loop it reaches no
+    torch through its globals."""
+    device, start = _worker_start()
+    t0 = time.perf_counter()
+    import torch as _torch
+
+    from ray_tpu_torch import train as rtrain
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.parallel.train_step import TrainStep
+    from ray_tpu_torch.train import _telemetry
+
+    cfg = GPT2Config.gpt2_124m()
+    ts = TrainStep(cfg, device=device)
+    state = ts.init(_torch.Generator().manual_seed(0))
+    shard = rtrain.get_dataset_shard("train")
+    it = shard.iter_torch_batches(batch_size=TRAIN_BATCH[0])
+    start["build_s"] = time.perf_counter() - t0
+    rows = []
+    for step in range(config["steps"]):
+        if step == config["traced_step"] and not _telemetry.request_device_trace(
+                DATA_TRACED_STEPS, config["trace_dir"]):
+            raise AssertionError("no current recorder to open a trace window")
+        t0 = time.perf_counter()
+        batch = next(it)
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        kinds = sorted({(v.device.type, str(v.dtype)) for v in batch.values()})
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)   # ends in a synchronise (telemetry)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows += _row_digests({k: v.cpu().numpy() for k, v in batch.items()})
+        rtrain.report({**start, "step": step, "n_layer": cfg.n_layer,
+                       "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                       "step_ms": ms, "wait_ms": wait_ms, "kinds": kinds,
+                       "counts": list(read_counts())})
+    if next(it, None) is not None:
+        raise AssertionError("the shard holds more batches than the steps")
+    window = _telemetry.read_device_trace(ts.telemetry.device_trace.last_trace)
+    del ts, state, batch
+    # the iterator alone: the same shard again (its map stage reruns; the
+    # shuffled blocks are already in the store), every batch landed
+    t0 = time.perf_counter()
+    tokens = batches = 0
+    for b in shard.iter_torch_batches(batch_size=TRAIN_BATCH[0]):
+        tokens += b["idx"].numel()
+        batches += 1
+    _torch.cuda.synchronize(device)
+    alone_s = time.perf_counter() - t0
+    rtrain.report({"step": "end", "digest": hashlib.sha256("".join(rows).encode()).hexdigest(),
+                   "copy_ms": it.copy_ms,
+                   "window": {k: window[k] for k in ("window_us", "busy_us", "busy_share",
+                                                     "copy_us", "lead_us", "gap_us",
+                                                     "tail_us")},
+                   "alone_tokens": tokens, "alone_batches": batches,
+                   "alone_s": alone_s})
+
+
+def phase_data(card: str, train):
+    """``TorchTrainer(loop, datasets={"train": ds}).fit()`` on the card (a
+    new ``init(num_cpus=DATA_CPUS)``: the worker's bundle holds one CPU,
+    the map and shuffle tasks lease the others): :func:`_data_loop` trains
+    GPT-2-124M from :func:`data_dataset`. Checks: 24 / 12 / 12 launches and
+    no plain call a step, every batch on cuda as int64, the first steps'
+    losses within TRAINER_LOSS_RTOL of the train phase's (the same batch,
+    seed and steps) and falling, the digest of the rows the worker got
+    equal to that of ``ds.take_all()`` on the driver. Prints the host ms each ``next()`` waited, the H2D copy
+    ms, the step ms beside the train phase's median, the window's busy
+    share and the tokens/s the iterator alone delivers; none is checked."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    head_steps = 1 + TRAIN_STEPS
+    steps = head_steps + DATA_TAIL_BATCHES
+    rt.init(num_cpus=DATA_CPUS)
+    try:
+        t0 = time.time()
+        ds = data_dataset(rd, GPT2Config.gpt2_124m().vocab_size)
+        build_s = time.time() - t0
+        fit_start = time.time()
+        result = TorchTrainer(
+            _data_loop,
+            train_loop_config={"steps": steps, "traced_step": head_steps,
+                               "trace_dir": str(Path(scratch) / "trace")},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=scratch, name="data"),
+            datasets={"train": ds}).fit()
+        fit_s = time.time() - fit_start
+        rows = ds.take_all()
+        driver_digest = hashlib.sha256("".join(
+            d for r in rows for d in _row_digests({k: [v] for k, v in r.items()})
+        ).encode()).hexdigest()
+    finally:
+        stop_runtime(rt)
+        import shutil
+
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    history = result.metrics_history
+    per_step = [h for h in history if isinstance(h.get("step"), int)]
+    end = history[-1]
+    first = per_step[0]
+    want = [2 * first["n_layer"], first["n_layer"], first["n_layer"], 0]
+    losses = [s["loss"] for s in per_step]
+    ref = train["losses"][:head_steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:head_steps], ref)]
+    traced = range(head_steps, head_steps + DATA_TRACED_STEPS)
+    timed = [s["step_ms"] for s in per_step[1:] if s["step"] not in traced]
+    wait_ms = [s["wait_ms"] for s in per_step]
+    copy_ms = end["copy_ms"]
+    tokens_per_step = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    res = {"fit_s": fit_s, "dataset_build_s": build_s, "rows": len(rows),
+           "losses": losses, "train_phase_losses": ref,
+           "loss_max_rel_diff": max(rel), "bitwise_equal_losses": losses[:head_steps] == ref,
+           "step_ms": [s["step_ms"] for s in per_step],
+           "median_step_ms": statistics.median(timed),
+           "train_phase_median_step_ms": train["median_step_ms"],
+           "wait_ms": wait_ms, "median_wait_ms": statistics.median(wait_ms[1:]),
+           "copy_ms": copy_ms, "median_copy_ms": statistics.median(copy_ms),
+           "window": end["window"],
+           "alone_tokens_per_s": end["alone_tokens"] / end["alone_s"],
+           "alone_batches": end["alone_batches"],
+           "consumed_tokens_per_s": tokens_per_step / (statistics.median(timed) / 1e3),
+           "tokens_per_step": tokens_per_step,
+           "kinds": sorted({tuple(k) for s in per_step for k in s["kinds"]}),
+           "counts": [s["counts"] for s in per_step],
+           "launches": [sum(s["counts"][i] for s in per_step[1:]) for i in range(3)],
+           "plain_calls": sum(s["counts"][3] for s in per_step),
+           "digest_equal": end["digest"] == driver_digest,
+           "startup": {"worker_import_torch_s": first["import_torch_s"],
+                       "worker_cuda_context_s": first["cuda_context_s"],
+                       "build_s": first["build_s"]}}
+    w = end["window"]
+    log(f"[data] TorchTrainer(datasets=...).fit() of GPT-2-124M (bf16, batch "
+        f"{TRAIN_BATCH}) from a Dataset of {len(rows)} rows ({1 + TRAIN_STEPS} blocks of "
+        f"the train phase's batch, then {DATA_TAIL_BATCHES} batches shuffled with seed 0): "
+        f"{fit_s:.2f} s in all, {steps} steps on {card}")
+    log(f"[data] next() waited {[round(x, 3) for x in wait_ms]} ms on the host "
+        f"(median after the first {res['median_wait_ms']:.3f}); H2D copy per batch "
+        f"{[round(x, 4) for x in copy_ms]} ms by CUDA events (median "
+        f"{res['median_copy_ms']:.4f}); on {card}")
+    log(f"[data] steps {[round(x, 2) for x in res['step_ms']]} ms (the first the "
+        f"warm-up, {head_steps}-{head_steps + DATA_TRACED_STEPS - 1} traced), median "
+        f"{res['median_step_ms']:.2f} ms beside the train phase's "
+        f"{train['median_step_ms']:.2f}; trace window over {DATA_TRACED_STEPS} steps and "
+        f"the next() between them: {w['window_us'] / 1e3:.2f} ms, device busy "
+        f"{w['busy_us'] / 1e3:.2f} ms = {w['busy_share']:.3f} of it (copies and memsets "
+        f"{w['copy_us'] / 1e3:.3f} ms); on {card}")
+    log(f"[data] the iterator alone delivers {res['alone_tokens_per_s']:.0f} tokens/s "
+        f"to the card ({end['alone_batches']} batches in {end['alone_s']:.3f} s) beside the "
+        f"{res['consumed_tokens_per_s']:.0f} tokens/s training consumes ({tokens_per_step} "
+        f"a step at the median step); on {card}")
+    log(f"[data] losses {[round(x, 4) for x in losses]}; the first {head_steps} vs the "
+        f"train phase's: largest relative difference {max(rel):.3g} (limit "
+        f"{TRAINER_LOSS_RTOL}), bitwise {res['bitwise_equal_losses']}; batches "
+        f"{res['kinds']}; counts per step (fwd, dq, dkv, plain) {res['counts']}; rows "
+        f"digest equal to the driver's take_all(): {res['digest_equal']}")
+    if (any(s["counts"] != want for s in per_step) or max(rel) > TRAINER_LOSS_RTOL
+            or not losses[head_steps - 1] < losses[0] or len(per_step) != steps
+            or res["kinds"] != [("cuda", "torch.int64")] or not res["digest_equal"]
+            or len(rows) != steps * TRAIN_BATCH[0] or len(copy_ms) != steps
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"the data phase: {res}")
+    return res
+
+
 def _trainer_ranks_loop(config):
     """The loop of ``--ranks``' trainer: every worker on its leased card, one
     NCCL group over them (brought up by ``TorchTrainer``); GPT-2-124M bf16
     on ``make_mesh({"dp": N})`` at the global TRAIN_BATCH, a warm-up and
     RANKS_TRAIN_STEPS timed steps with each step's counts, then one fp32
     4-layer step on the mesh against the one-device step on each card.
-    First, an all-reduce of 256 MB of fp32 over the trainer's group, as the
+    Each rank's batches come from its shard of :func:`ranks_dataset`
+    (``get_dataset_shard("train")``, B / N rows a step on its card); it
+    reports the digest of every row it got. First, an all-reduce of 256 MB of fp32 over the trainer's group, as the
     ranks path times one over its own. Rank 0 reports what every rank saw."""
     import torch.distributed as dist
 
@@ -2365,16 +2612,20 @@ def _trainer_ranks_loop(config):
     cfg = GPT2Config.gpt2_124m()
     ts = TrainStep(cfg, mesh, device=device)
     state = ts.init(torch.Generator().manual_seed(0))
-    idx = np.random.default_rng(0).integers(0, cfg.vocab_size, TRAIN_BATCH)
-    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
-    losses, counts, step_ms = [], [], []
+    it = rtrain.get_dataset_shard("train").iter_torch_batches(
+        batch_size=TRAIN_BATCH[0] // world)
+    losses, counts, step_ms, rows = [], [], [], []
     for _ in range(1 + RANKS_TRAIN_STEPS):
+        batch = next(it)
+        rows += _row_digests({k: v.cpu().numpy() for k, v in batch.items()})
         reset_counts()
         t0 = time.perf_counter()
         state, m = ts.step(state, batch)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         counts.append(list(read_counts()))
         losses.append(m["loss"].item())
+    if next(it, None) is not None:
+        raise AssertionError("the shard holds more batches than the steps")
     del ts, state, batch
     torch.cuda.empty_cache()
     parity = mesh_parity(config["card"], f"gpt2-124m width on {{'dp': {world}}} "
@@ -2382,11 +2633,23 @@ def _trainer_ranks_loop(config):
                              n_layer=MESH_PARITY_LAYERS, dtype=torch.float32),
                          mesh, RANKS_PARITY_BATCH, RANKS_REL_TOL, tag="trainer_ranks")
     mine = {**start, "losses": losses, "counts": counts, "step_ms": step_ms,
-            "n_layer": cfg.n_layer,
+            "n_layer": cfg.n_layer, "rows": rows,
             "parity": parity, "rank": dist.get_rank(), "backend": dist.get_backend()}
     every = [None] * world
     dist.all_gather_object(every, mine)
     rtrain.report({"ranks": every})
+
+
+def ranks_dataset(rd, vocab: int, world: int):
+    """``--ranks N``'s Dataset: phase 7's TRAIN_BATCH once per step, in
+    (1 + RANKS_TRAIN_STEPS) x N equal blocks, block s * N + r holding the
+    rows rank r takes of step s's global batch (``split_blocks(N)`` gives
+    rank r the blocks r, N + r, ...), mapped into idx / targets by tasks."""
+    idx = np.random.default_rng(0).integers(0, vocab, TRAIN_BATCH)
+    rows = np.concatenate([idx, idx[:, :1]], axis=1)
+    steps = 1 + RANKS_TRAIN_STEPS
+    return rd.from_numpy(np.tile(rows, (steps, 1)), column="tokens",
+                         override_num_blocks=steps * world).map_batches(_split_tokens)
 
 
 def trainer_ranks(card: str, world: int, dp_run, bus_gb_s):
@@ -2396,23 +2659,30 @@ def trainer_ranks(card: str, world: int, dp_run, bus_gb_s):
     12 launches and no plain call per rank and step, the losses against
     ``dp_run`` (the ranks path's run on the same ``{"dp": N}`` mesh, seed
     and batch) within TRAINER_LOSS_RTOL, and the fp32 step against one
-    card."""
+    card. The batches come through ``datasets=`` (:func:`ranks_dataset`,
+    equal blocks, a multiple of N): each rank's rows are disjoint from the
+    others', and together they are the dataset's rows."""
     import tempfile
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models.gpt2 import GPT2Config
     from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
 
     scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_ranks_")
-    rt.init(num_cpus=4)
+    rt.init(num_cpus=world + 2)   # a CPU per worker's bundle, two for map tasks
     try:
+        ds = ranks_dataset(rd, GPT2Config.gpt2_124m().vocab_size, world)
         t0 = time.time()
         result = TorchTrainer(
             _trainer_ranks_loop, train_loop_config={"card": card},
             scaling_config=ScalingConfig(num_workers=world, use_gpu=True),
             run_config=RunConfig(storage_path=scratch.name, name="trainer_ranks"),
-            torch_config=TorchConfig()).fit()
+            torch_config=TorchConfig(), datasets={"train": ds}).fit()
         fit_s = time.time() - t0
+        dataset_rows = sorted(d for r in ds.take_all()
+                              for d in _row_digests({k: [v] for k, v in r.items()}))
     finally:
         stop_runtime(rt)
         scratch.cleanup()
@@ -2434,6 +2704,10 @@ def trainer_ranks(card: str, world: int, dp_run, bus_gb_s):
            "launches_dkv": [sum(c[2] for c in r["counts"][1:]) for r in every],
            "plain_calls": sum(c[3] for r in every for c in r["counts"]),
            "parity": [r["parity"] for r in every],
+           "rows_disjoint": all(not set(a["rows"]) & set(b["rows"])
+                                for i, a in enumerate(every) for b in every[i + 1:]),
+           "rows_union_is_dataset": sorted(d for r in every for d in r["rows"])
+                                    == dataset_rows,
            "startup": [{k: r[k] for k in ("import_torch_s", "cuda_context_s")}
                        for r in every]}
     log(f"[trainer_ranks] TorchTrainer over {world} cards ({res['backends']}): cards "
@@ -2444,6 +2718,7 @@ def trainer_ranks(card: str, world: int, dp_run, bus_gb_s):
         f"{json.dumps(res)} on {card}")
     if (res["cards"] != [str(i) for i in range(world)]
             or res["backends"] != ["nccl"]
+            or not res["rows_disjoint"] or not res["rows_union_is_dataset"]
             or len(every[0]["losses"]) != len(dp_losses) or max(rel) > TRAINER_LOSS_RTOL
             or any(c != want for r in every for c in r["counts"])
             or any(r["visible"] is None or [r["visible"]] != r["accelerator_ids"]
@@ -2772,6 +3047,7 @@ def main() -> int:
     serve_deploy = phase_serve_deploy(card, serve, runtime, spec, llama["prompts"],
                                       llama_cpu)
     trainer = phase_trainer(card, train)
+    data = phase_data(card, train)
     del llama_cpu
     spec.pop("same_seed_outputs")
     for key in ("prompts", "outputs", "cpu_model"):
@@ -2794,7 +3070,8 @@ def main() -> int:
                    "runtime_train": runtime["train_plain_calls"],
                    "serve_deploy": serve_deploy["plain_calls"],
                    "serve_deploy_spec": serve_deploy["spec"]["plain_calls"],
-                   "trainer": trainer["plain_calls"]}
+                   "trainer": trainer["plain_calls"],
+                   "data": data["plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -2816,7 +3093,8 @@ def main() -> int:
                              "runtime_train": runtime["train_launches"][0],
                              "serve_deploy": serve_deploy["launches"],
                              "serve_deploy_spec": serve_deploy["spec"]["launches"],
-                             "trainer": trainer["launches"][0]},
+                             "trainer": trainer["launches"][0],
+                             "data": data["launches"][0]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -2852,7 +3130,8 @@ def main() -> int:
                                                    ("pipeline", pipeline),
                                                    ("runtime_train",
                                                     {"launches": runtime["train_launches"]}),
-                                                   ("trainer", trainer))},
+                                                   ("trainer", trainer),
+                                                   ("data", data))},
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
             "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
                                              if c["dtype"] == dt for o in outputs)
@@ -2864,7 +3143,8 @@ def main() -> int:
             "library_ms": bwd_head["library_ms"],
             "plain_calls_by_path": {path: plain_calls[path] for path in
                                     ("train", "llama_train", "moe_train", "mesh",
-                                     "moe_mesh", "pipeline", "runtime_train", "trainer")},
+                                     "moe_mesh", "pipeline", "runtime_train", "trainer",
+                                     "data")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -2890,6 +3170,7 @@ def main() -> int:
     log(f"[runtime] {json.dumps(runtime)}")
     log(f"[serve_deploy] {json.dumps(serve_deploy)}")
     log(f"[trainer] {json.dumps(trainer)}")
+    log(f"[data] {json.dumps(data)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -84,13 +84,19 @@ with Tune and placement groups):
   tune/                  Tuner, search spaces, TPE, ASHA, HyperBand, median
                          stopping, PBT (copies)
   util/placement_group.py  gang reservation of resource bundles
+  data/                  Dataset: lazy plans of map stages over numpy blocks
+                         in plasma, the streaming executor with
+                         backpressure, the sort / groupby / shuffle exchange,
+                         readers, preprocessors (copies); torch only in
+                         iter_torch_batches, which places batches on the card
+                         through pinned memory and non-blocking copies
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back. This
 module and the runtime's control plane (the GCS, the raylet, the fork
 server) never import torch: a worker first touches CUDA after its lease's
-``CUDA_VISIBLE_DEVICES`` is set; importing ``train`` or ``tune`` loads no
-torch either, so a trainer's trial actor never loads it.
+``CUDA_VISIBLE_DEVICES`` is set; importing ``train``, ``tune`` or ``data``
+loads no torch either, so a trainer's trial actor never loads it.
 
 Attribute access is lazy (PEP 562), as in ``ray_tpu``: control-plane
 processes that import only their own submodules don't pay for the API.
@@ -146,7 +152,7 @@ def __getattr__(name):
         import ray_tpu_torch.util as _util
 
         return _util
-    if name in ("train", "serve"):
+    if name in ("train", "serve", "data"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -199,7 +199,11 @@ class PlasmaClient:
         return bool(self._libref.ps_contains(self._handle, self._id_bytes(object_id)))
 
     def release(self, object_id):
-        self._libref.ps_release(self._handle, self._id_bytes(object_id))
+        # A zero-copy value may outlive close() (a driver's shutdown): the
+        # mapping stays, and its pin went with the client, so there is
+        # nothing to release (ps_release on the closed handle would crash).
+        if self._handle:
+            self._libref.ps_release(self._handle, self._id_bytes(object_id))
 
     def delete(self, object_id) -> bool:
         rc = self._libref.ps_delete(self._handle, self._id_bytes(object_id))

@@ -10,8 +10,10 @@ one-trial Tune run, as in the reference.
 The names resolve on first access (PEP 562): ``parallel.train_step``
 imports ``train._telemetry``, and that must not load the runtime; nothing
 here imports torch at import time, so a CPU-only trial actor never loads
-it. ``get_dataset_shard`` and a trainer's ``datasets=`` wait for ``data/``
-(ROADMAP item 9) and raise ``NotImplementedError``.
+it. A trainer's ``datasets=`` (``ray_tpu_torch.data`` Datasets) are split
+by blocks over the workers (``split_blocks``, one shard per rank), and
+``get_dataset_shard(name)`` returns this rank's, which streams its blocks
+through ``iter_batches`` or onto the card through ``iter_torch_batches``.
 """
 
 import importlib

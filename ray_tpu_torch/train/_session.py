@@ -46,9 +46,11 @@ class TrainContext:
 
 class _Session:
     def __init__(self, ctx: TrainContext, latest_checkpoint: Optional[Checkpoint],
+                 dataset_shards: Optional[Dict[str, Any]] = None,
                  pipeline_depth: int = 1):
         self.ctx = ctx
         self.latest_checkpoint = latest_checkpoint
+        self.dataset_shards = dataset_shards or {}
         self.reports: "queue.Queue" = queue.Queue()
         self.consumed = threading.Event()
         # Pipelined reports (reference: _internal/session.py uses a bounded
@@ -103,6 +105,7 @@ _session_lock = threading.Lock()
 
 
 def init_session(ctx: TrainContext, checkpoint: Optional[Checkpoint],
+                 dataset_shards: Optional[Dict[str, Any]] = None,
                  pipeline_depth: int = 1) -> _Session:
     global _session
     # A reused worker process must not report the previous run's telemetry.
@@ -112,7 +115,7 @@ def init_session(ctx: TrainContext, checkpoint: Optional[Checkpoint],
     if _telemetry is not None:
         _telemetry.set_current_recorder(None)
     with _session_lock:
-        _session = _Session(ctx, checkpoint, pipeline_depth)
+        _session = _Session(ctx, checkpoint, dataset_shards, pipeline_depth)
         return _session
 
 
@@ -153,11 +156,20 @@ def report(metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
 
 def get_dataset_shard(name: str = "train"):
     """This worker's split of a dataset passed to the trainer
-    (reference: train.get_dataset_shard / DataConfig sharding). The port
-    has no ``data/`` yet, so no trainer takes ``datasets=``."""
-    raise NotImplementedError(
-        "get_dataset_shard() reads a Dataset passed to the trainer; "
-        "ray_tpu_torch has no data/ yet (ROADMAP item 9)")
+    (reference: train.get_dataset_shard / DataConfig sharding): a
+    ``ray_tpu_torch.data.Dataset`` that streams this rank's blocks."""
+    s = get_session()
+    if s is None:
+        raise RuntimeError(
+            "ray_tpu_torch.train.get_dataset_shard() outside a train worker"
+        )
+    shard = s.dataset_shards.get(name)
+    if shard is None:
+        raise KeyError(
+            f"no dataset {name!r} was passed to the trainer "
+            f"(available: {list(s.dataset_shards)})"
+        )
+    return shard
 
 
 def get_checkpoint() -> Optional[Checkpoint]:

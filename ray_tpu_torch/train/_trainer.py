@@ -71,15 +71,12 @@ class DataParallelTrainer:
         resume_from_checkpoint: Optional[Checkpoint] = None,
         datasets: Optional[Dict[str, Any]] = None,
     ):
-        if datasets:
-            raise NotImplementedError(
-                "datasets= shards a Dataset over the workers; ray_tpu_torch has "
-                "no data/ yet (ROADMAP item 9)")
         self._train_fn = train_loop_per_worker
         self._train_config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self._resume_checkpoint = resume_from_checkpoint
+        self._datasets = datasets or {}
         name = self.run_config.name or f"train_{int(time.time())}"
         from ray_tpu_torch.train._storage import is_remote_uri
 
@@ -181,6 +178,17 @@ class DataParallelTrainer:
             self._on_group_start(group)
             ips = group.execute("node_ip")
             local_ranks = self._local_ranks(ips)
+            # Shard datasets across workers: lazy block-granular split so
+            # every rank STREAMS a disjoint slice without materializing the
+            # plan on the driver (reference: DataConfig/streaming_split).
+            shards_by_rank = [dict() for _ in range(sc.num_workers)]
+            for ds_name, ds in self._datasets.items():
+                if sc.num_workers > 1:
+                    splits = ds.split_blocks(sc.num_workers)
+                else:
+                    splits = [ds]
+                for rank, shard in enumerate(splits):
+                    shards_by_rank[rank][ds_name] = shard
             per_worker = []
             for rank in range(sc.num_workers):
                 ctx = TrainContext(
@@ -193,7 +201,7 @@ class DataParallelTrainer:
                 )
                 per_worker.append(
                     (self._train_fn, self._train_config, ctx, checkpoint,
-                     self._report_pipeline_depth)
+                     shards_by_rank[rank], self._report_pipeline_depth)
                 )
             group.execute("start_run", per_worker_args=per_worker)
             return self._poll_reports(group, ckpt_config, report_callback)

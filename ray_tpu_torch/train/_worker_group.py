@@ -97,9 +97,10 @@ class _TrainWorker:
         config: Optional[dict],
         ctx: TrainContext,
         checkpoint: Optional[Checkpoint],
+        dataset_shards: Optional[Dict[str, Any]] = None,
         pipeline_depth: int = 1,
     ):
-        session = init_session(ctx, checkpoint, pipeline_depth)
+        session = init_session(ctx, checkpoint, dataset_shards, pipeline_depth)
 
         import inspect
 

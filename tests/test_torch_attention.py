@@ -288,8 +288,8 @@ _BANNED = ("jax", "jaxlib", "flax", "ray_tpu")
 def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     """Every module of the port (the runtime's too: the GCS, the raylet,
     the workers, the dashboard agent; the trainer, Tune and placement
-    groups) imports without JAX and without side effects: no thread, no
-    child process, no signal handler."""
+    groups; the data package) imports without JAX and without side
+    effects: no thread, no child process, no signal handler."""
     code = (
         "import importlib, multiprocessing, pkgutil, signal, sys, threading\n"
         "import ray_tpu_torch, chip_smoke\n"
@@ -303,7 +303,11 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
         "        'ray_tpu_torch._native.plasma', 'ray_tpu_torch.dashboard.agent',\n"
         "        'ray_tpu_torch.train.torch', 'ray_tpu_torch.train._trainer',\n"
         "        'ray_tpu_torch.train._worker_group', 'ray_tpu_torch.tune.controller',\n"
-        "        'ray_tpu_torch.tune.tuner', 'ray_tpu_torch.util.placement_group'} <= set(names)\n"
+        "        'ray_tpu_torch.tune.tuner', 'ray_tpu_torch.util.placement_group',\n"
+        "        'ray_tpu_torch.data', 'ray_tpu_torch.data.block',\n"
+        "        'ray_tpu_torch.data.backpressure', 'ray_tpu_torch.data._streaming',\n"
+        "        'ray_tpu_torch.data._exchange', 'ray_tpu_torch.data.dataset',\n"
+        "        'ray_tpu_torch.data.preprocessors'} <= set(names)\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not multiprocessing.active_children()\n"
         "assert handlers == {s: signal.getsignal(s) for s in handlers}\n"

@@ -227,3 +227,32 @@ def test_coordinating_tasks_in_deep_queue(shutdown_only):
     out = ray_tpu_torch.get(refs, timeout=120)
     assert all(out), out
 
+
+
+def test_zero_copy_value_outlives_shutdown(tmp_path):
+    """A value read zero-copy from the store and freed after ``shutdown()``
+    (here by the cyclic GC) must not crash the process: its pin went with
+    the store's client (fault 8; the JAX runtime segfaults here, rc -11)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = tmp_path / "zero_copy.py"
+    script.write_text(
+        "import gc\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch as rt\n"
+        "rt.init(num_cpus=1)\n"
+        "value = rt.get(rt.put(np.arange(1 << 20)))\n"
+        "cycle = [value]\n"
+        "cycle.append(cycle)\n"
+        "rt.shutdown()\n"
+        "del value, cycle\n"
+        "gc.collect()\n"
+        "print('survived')\n")
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1]),
+           "RTPU_TORCH_dashboard_agent": "0"}
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert (res.returncode, res.stdout.strip()) == (0, "survived"), res.stderr[-2000:]

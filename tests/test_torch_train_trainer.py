@@ -466,9 +466,9 @@ def test_worker_resources_and_actor_options():
         "num_cpus": 1, "num_gpus": 1, "memory": 5, "resources": {"x": 2}}
     with pytest.raises(ValueError, match="use GPU"):
         _to_actor_options({"TPU": 1})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TorchTrainer(lambda: None, datasets={"train": [1]})
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # datasets= is taken (ray_tpu_torch.data); the shard is read in a worker
+    assert TorchTrainer(lambda: None, datasets={"train": [1]})._datasets == {"train": [1]}
+    with pytest.raises(RuntimeError, match="outside a train worker"):
         train.get_dataset_shard()
 
 
