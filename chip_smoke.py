@@ -180,6 +180,31 @@ script exits non-zero:
              phase 7's median, the window's busy share, and the tokens/s
              the iterator alone delivers to the card beside what a step
              consumes
+ 19. rllib    RLlib with its learners on the card (no gymnasium or pyarrow
+             here: CartPole-v1 and Pendulum-v1 are the port's numpy copies;
+             no kernel runs on this path): one update of each learner class
+             (TorchLearner, ImpalaLearner, AppoLearner, DQNLearner,
+             SACLearner with fixed noise, _MarwilLearner) on the card
+             against the CPU from the same weights and batch (losses and
+             aux within 1e-5 relative, parameters within 1e-5 relative or
+             2 * lr, parameters and optimizer state on cuda); then a new
+             init(num_cpus=6): PPO with tests/test_rllib.py's config (4
+             runners x 8 envs x 64 steps, lr 1e-3, 8 epochs of 256) to a
+             mean return of 150 within 120 iterations, its learner actor
+             on cuda with its lease's CUDA_VISIBLE_DEVICES, no runner
+             process holding torch, gymnasium or JAX (printing iterations,
+             each iteration's sampling, update and weights' return seconds,
+             the update's env steps per second, the lease's start); APPO
+             with tests/test_offline_rl.py's config to 150 within 40
+             iterations, learner/kl >= 0; three iterations each of IMPALA
+             (its learner on this process's card), DQN, SAC (Pendulum-v1,
+             256 x 256) and multi-agent PPO with finite losses and the env
+             steps their configs give; PPO at its
+             default config (2 runners x 8 envs x 128 steps, 64 x 64, 4
+             epochs of 512) for three iterations, saved and restored with
+             the weights bitwise in the driver and in the new learner. BC
+             and MARWIL read parquet, which needs pyarrow: they run in the
+             CPU tests, their learner here
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
@@ -351,6 +376,14 @@ DATA_TAIL_BLOCKS = 4
 DATA_TRACED_STEPS = 2         # the trace window: two steps and the next() between them
 DATA_CPUS = 5                 # the worker's bundle holds 1; 4 for map and shuffle tasks
 BIG_BH_SHAPE = (5462, 12, 16, 64)
+RL_CPUS = 6                   # PPO's four runners and its learner's bundle, one to spare
+RL_GPUS = 1                   # num_gpus_per_learner of every algorithm in the rllib phase
+RL_THRESHOLD = 150.0          # mean return: tests/test_rllib.py:74-80, test_offline_rl.py:137-141
+RL_PPO_ITERS = 120
+RL_APPO_ITERS = 40
+RL_SHORT_ITERS = 3            # IMPALA, DQN, SAC, multi-agent PPO and the checkpoint run
+RL_REL_TOL = 1e-5             # a learner's update, card vs CPU: losses, aux, parameters
+RL_ABS_FLOOR = 1e-7           # for a value zero up to rounding (PPO's first pi_loss)
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
               "ray_tpu_llm_prefix_hit_rate", "ray_tpu_llm_spec_acceptance")
@@ -2584,6 +2617,408 @@ def phase_data(card: str, train):
     return res
 
 
+def _rl_probe_classes():
+    """A ``TorchLearner`` that reports its device, its lease and its start,
+    and a ``SingleAgentEnvRunner`` that reports which of torch, gymnasium
+    and JAX its process holds; defined here and sent to the actors by
+    value. The phase binds them where the algorithm binds the port's
+    classes (in the driver only), so the actors' options stay the
+    algorithm's own."""
+    from ray_tpu_torch.rllib.core.learner import TorchLearner
+    from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+
+    class ProbeLearner(TorchLearner):
+        def __init__(self, *args, **kwargs):
+            import os
+
+            import psutil
+
+            entered = time.time()
+            t0 = time.perf_counter()
+            import torch as _torch  # the process's first import of it
+
+            import_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if _torch.cuda.is_available():
+                _torch.zeros(1, device="cuda").sum().item()
+            context_s = time.perf_counter() - t0
+            super().__init__(*args, **kwargs)
+            self._start = {"process_start": psutil.Process().create_time(),
+                           "init_entered": entered, "import_torch_s": import_s,
+                           "cuda_context_s": context_s, "ready": time.time(),
+                           "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+        def probe(self) -> dict:
+            import ray_tpu_torch
+
+            state = [t for s in self.opt.state.values() for t in s.values()
+                     if hasattr(t, "device")]
+            return {**self._start, "device": str(self.device),
+                    "accelerator_ids": ray_tpu_torch.get_runtime_context()
+                    .get_accelerator_ids()["GPU"],
+                    "param_devices": sorted({str(p.device) for p in self.module.parameters()}),
+                    "opt_state_devices": sorted({str(t.device) for t in state})}
+
+    class ProbeRunner(SingleAgentEnvRunner):
+        def modules(self) -> list:
+            import sys as _sys
+
+            return sorted({m.split(".")[0] for m in _sys.modules}
+                          & {"torch", "gymnasium", "jax"})
+
+    return ProbeLearner, ProbeRunner
+
+
+def _rl_on_card(devices) -> bool:
+    """Every tensor of ``devices`` (a sorted list of device names) on the
+    card this process uses."""
+    return devices == ["cuda:0"]
+
+
+def _rl_learner_on_lease(probe) -> bool:
+    """The probed learner actor runs on cuda, on the card its lease named in
+    CUDA_VISIBLE_DEVICES, with its parameters and Adam state there."""
+    return (probe["device"] == "cuda" and bool(probe["visible"])
+            and [probe["visible"]] == probe["accelerator_ids"]
+            and _rl_on_card(probe["param_devices"])
+            and _rl_on_card(probe["opt_state_devices"]))
+
+
+def _rl_tensors(learner):
+    """(parameters, optimizer-state tensors) of every module and optimizer
+    a learner holds."""
+    mods = [getattr(learner, n) for n in ("module", "actor", "critic", "target")
+            if hasattr(learner, n)]
+    opts = [getattr(learner, n) for n in ("opt", "actor_opt", "critic_opt", "alpha_opt")
+            if hasattr(learner, n)]
+    params = [p for m in mods for p in m.parameters()]
+    if hasattr(learner, "log_alpha"):
+        params.append(learner.log_alpha)
+    state = [t for o in opts for s in o.state.values() for t in s.values()
+             if isinstance(t, torch.Tensor)]
+    return params, state
+
+
+def rl_learner_parity(card: str):
+    """One update of each learner class on the card against the same update
+    on the CPU, from the same weights (both drawn on the CPU from one seed)
+    and batch: losses and aux within RL_REL_TOL relative (RL_ABS_FLOOR for
+    a value that is zero up to rounding), parameters within RL_REL_TOL
+    relative or, where Adam's first step turns a near-zero gradient of
+    another summation order into ±lr, within 2·lr (under 1% of them); the
+    card learner's parameters and optimizer state on cuda."""
+    from ray_tpu_torch.rllib.algorithms import bc, dqn, sac
+    from ray_tpu_torch.rllib.core import appo_learner, impala_learner, learner
+    from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+
+    runner = SingleAgentEnvRunner("CartPole-v1", 8, gamma=0.99, lambda_=0.95, seed=0)
+    weights = learner.TorchLearner(4, 2, device="cpu").get_weights()
+    batch = runner.sample(weights, 128)
+    batch.pop("episode_returns")
+    traj = runner.sample_trajectory(weights, 64)
+    q_batch = dqn.DQNEnvRunner("CartPole-v1", 8, seed=1).sample(
+        dqn.DQNLearner(4, 2, device="cpu").get_weights(), 32, 1.0)
+    q_batch.pop("episode_returns")
+    s_batch = sac.SACEnvRunner("Pendulum-v1", 8, seed=2).sample(None, 32, random=True)
+    s_batch.pop("episode_returns")
+    noise = np.random.default_rng(3).standard_normal((2, len(s_batch["obs"]), 1)
+                                                     ).astype(np.float32)
+    rtg = batch["returns"][:512]
+    m_batches = [{"obs": batch["obs"][i:i + 256], "action": batch["actions"][i:i + 256]
+                  .astype(np.int32), "return_to_go": (rtg[i:i + 256] - rtg.mean()) / rtg.std()}
+                 for i in (0, 256)]
+    cases = (
+        ("TorchLearner", 3e-4, lambda d: learner.TorchLearner(4, 2, device=d),
+         lambda lr: [lr.update_from_batch(batch, num_epochs=1,
+                                          minibatch_size=len(batch["obs"]))]),
+        ("ImpalaLearner", 5e-4, lambda d: impala_learner.ImpalaLearner(4, 2, device=d),
+         lambda lr: [lr.update_from_trajectories(traj)]),
+        ("AppoLearner", 5e-4, lambda d: appo_learner.AppoLearner(
+            4, 2, use_kl_loss=True, target_update_freq=1, device=d),
+         lambda lr: [lr.update_from_trajectories(traj), lr.update_from_trajectories(traj)]),
+        ("DQNLearner", 1e-3, lambda d: dqn.DQNLearner(4, 2, device=d),
+         lambda lr: [lr.update(q_batch)]),
+        ("SACLearner", 3e-4, lambda d: sac.SACLearner(3, 1, [-2.0], [2.0], device=d),
+         lambda lr: [lr.update_with_noise(s_batch, noise[0], noise[1])]),
+        ("_MarwilLearner", 1e-3, lambda d: bc._MarwilLearner(4, 2, device=d),
+         lambda lr: [lr.update(b) for b in m_batches]),
+    )
+    out = []
+    for name, lr, make, update in cases:
+        ref_l, got_l = make("cpu"), make(DEVICE)
+        ref_aux = update(ref_l)
+        t0 = time.perf_counter()
+        got_aux = update(got_l)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        # each aux difference over its limit (RL_REL_TOL relative, RL_ABS_FLOOR)
+        aux_share = max(abs(g[k] - r[k]) / (RL_REL_TOL * abs(r[k]) + RL_ABS_FLOOR)
+                        for g, r in zip(got_aux, ref_aux) for k in r)
+        aux_err = max((abs(g[k] - r[k]) / abs(r[k]) for g, r in zip(got_aux, ref_aux)
+                       for k in r if abs(r[k]) > RL_ABS_FLOOR / RL_REL_TOL), default=0.0)
+        got_p, got_s = _rl_tensors(got_l)
+        ref_p, _ = _rl_tensors(ref_l)
+        err = [(p.detach().cpu().double() - q.detach().double()).abs()
+               for p, q in zip(got_p, ref_p)]
+        outliers = sum(int((e > RL_REL_TOL * q.detach().double().abs() + RL_ABS_FLOOR).sum())
+                       for e, q in zip(err, ref_p))
+        size = sum(q.numel() for q in ref_p)
+        devices = sorted({str(t.device) for t in got_p + got_s})
+        res = {"learner": name, "updates": len(ref_aux), "aux_max_rel_err": aux_err,
+               "aux_max_share_of_limit": aux_share,
+               "param_max_abs_err": max(float(e.max()) for e in err), "lr": lr,
+               "param_outliers": outliers, "params": size, "devices": devices,
+               "opt_state_tensors": len(got_s), "card_update_s": card_s}
+        log(f"[rllib] {name}: {len(ref_aux)} update(s) on the card against the CPU: "
+            f"aux largest relative difference {aux_err:.3g} (limit {RL_REL_TOL}; every "
+            f"difference at most {aux_share:.3g} of its limit with the {RL_ABS_FLOOR} floor), "
+            f"parameters largest difference {res['param_max_abs_err']:.3g} (limit 2·lr "
+            f"{2 * lr:g}), {outliers} of {size} beyond {RL_REL_TOL} relative; parameters "
+            f"and {len(got_s)} optimizer-state tensors on {devices}; {card_s:.4f} s on {card}")
+        if (aux_share > 1.0 or res["param_max_abs_err"] > 2 * lr + 1e-6
+                or outliers > 0.01 * size or not _rl_on_card(devices) or not got_s):
+            raise AssertionError(f"the rllib phase: {name}'s card update: {res}")
+        out.append(res)
+    return out
+
+
+def _rl_timed(obj, name: str, sink: list, rows: bool = False) -> None:
+    """Wrap ``obj.name`` (on the instance) to append each call's seconds,
+    and with ``rows`` the row count of its first argument, to ``sink``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sink.append((time.perf_counter() - t0, len(args[0]["obs"])) if rows
+                    else time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _rl_until(algo, iters: int):
+    """``train()`` until the mean return reaches RL_THRESHOLD or ``iters``
+    iterations have run: (best mean return, iterations run, last result,
+    seconds of each iteration)."""
+    best, secs, result = float("-inf"), [], {}
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        result = algo.train()
+        secs.append(time.perf_counter() - t0)
+        best = max(best, result["episode_return_mean"])
+        if best >= RL_THRESHOLD:
+            break
+    return best, len(secs), result, secs
+
+
+def _rl_losses_finite(result) -> bool:
+    losses = [v for k, v in result.items() if k.startswith("learner/")]
+    return bool(losses) and all(np.isfinite(losses))
+
+
+def phase_rllib(card: str):
+    """RLlib on the card (a new ``init(num_cpus=RL_CPUS)``; no gymnasium, no
+    pyarrow on this machine: CartPole-v1 and Pendulum-v1 are the port's
+    numpy copies). Checks: every learner class's update on the card against
+    the CPU (:func:`rl_learner_parity`); PPO with ``tests/test_rllib.py``'s
+    config to a mean return of RL_THRESHOLD within RL_PPO_ITERS iterations,
+    its learner actor on cuda with the lease's CUDA_VISIBLE_DEVICES, no
+    runner holding torch; APPO with ``tests/test_offline_rl.py``'s config to
+    RL_THRESHOLD within RL_APPO_ITERS, its KL non-negative; RL_SHORT_ITERS
+    iterations each of IMPALA (its learner in this process, on its card:
+    APPO runs the engine's learner actor), DQN, SAC (Pendulum-v1, 256 x
+    256) and multi-agent PPO with finite losses and the env steps their
+    configs give; PPO at its default config (2 runners x 8 envs x 128 steps) saved
+    and restored with the weights bitwise, in the driver and in the new
+    learner. Prints iterations, the seconds of each part of a PPO
+    iteration (sampling, the update, the weights' return), the update's env
+    steps per second and the learner lease's start."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rllib as rl
+    from ray_tpu_torch.rllib.core import learner as learner_mod
+    from ray_tpu_torch.rllib.env import env_runner as runner_mod
+
+    res = {"parity": rl_learner_parity(card)}
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+    rt.init(num_cpus=RL_CPUS)
+    try:
+        # PPO to the threshold, through the probes
+        cfg = (rl.PPOConfig().environment("CartPole-v1")
+               .env_runners(num_env_runners=4, num_envs_per_env_runner=8,
+                            rollout_fragment_length=64)
+               .training(lr=1e-3, num_epochs=8, minibatch_size=256, entropy_coeff=0.005)
+               .learners(num_gpus_per_learner=RL_GPUS).debugging(seed=0))
+        real = learner_mod.TorchLearner, runner_mod.SingleAgentEnvRunner
+        learner_mod.TorchLearner, runner_mod.SingleAgentEnvRunner = _rl_probe_classes()
+        try:
+            build_start = time.time()
+            algo = cfg.build()
+            build_s = time.time() - build_start
+        finally:
+            learner_mod.TorchLearner, runner_mod.SingleAgentEnvRunner = real
+        try:
+            sample_s, update_s, weights_s = [], [], []
+            _rl_timed(algo.env_runner_group, "sample", sample_s)
+            _rl_timed(algo.learner_group, "update_from_batch", update_s, rows=True)
+            _rl_timed(algo.learner_group, "get_weights", weights_s)
+            best, iters, last, secs = _rl_until(algo, RL_PPO_ITERS)
+            probe = rt.get(algo.learner_group._actor.probe.remote(), timeout=60)
+            modules = rt.get([r.modules.remote() for r in algo.env_runner_group.runners],
+                             timeout=60)
+        finally:
+            algo.stop()
+        steps_per_s = [rows / s for s, rows in update_s]
+        ppo = {"best": best, "iterations": iters, "build_s": build_s,
+               "iteration_s": secs, "sample_s": sample_s,
+               "update_s": [s for s, _ in update_s], "weights_s": weights_s,
+               "update_env_steps_per_s": steps_per_s,
+               "env_steps": last["num_env_steps_sampled_lifetime"],
+               "lease": {"learner_ready_s": probe["ready"] - build_start,
+                         "worker_process_to_init_s": probe["init_entered"]
+                         - probe["process_start"],
+                         "learner_init_s": probe["ready"] - probe["init_entered"],
+                         "import_torch_s": probe["import_torch_s"],
+                         "cuda_context_s": probe["cuda_context_s"],
+                         "visible": probe["visible"],
+                         "accelerator_ids": probe["accelerator_ids"]},
+               "learner_device": probe["device"], "param_devices": probe["param_devices"],
+               "opt_state_devices": probe["opt_state_devices"], "runner_modules": modules}
+        med = statistics.median
+        log(f"[rllib] PPO on CartPole-v1 (4 runners x 8 envs x 64 steps, 8 epochs of 256, "
+            f"the learner on a leased card): mean return {best:.1f} after {iters} "
+            f"iterations (threshold {RL_THRESHOLD}, limit {RL_PPO_ITERS}); on {card}")
+        log(f"[rllib] PPO iteration median {med(secs):.4f} s: sampling {med(sample_s):.4f} s, "
+            f"the update {med(ppo['update_s']):.4f} s ({med(steps_per_s):.0f} env steps/s; "
+            f"range {min(steps_per_s):.0f}-{max(steps_per_s):.0f}), the weights' return "
+            f"{med(weights_s):.4f} s; first iteration {secs[0]:.4f} s; on {card}")
+        log(f"[rllib] PPO build {build_s:.2f} s; the learner ready {ppo['lease']['learner_ready_s']:.2f} "
+            f"s after build() began (its worker's start to __init__ "
+            f"{ppo['lease']['worker_process_to_init_s']:.2f} s, __init__ "
+            f"{ppo['lease']['learner_init_s']:.2f} s: torch's import "
+            f"{probe['import_torch_s']:.2f} s, the CUDA context {probe['cuda_context_s']:.2f} "
+            f"s, then the port's imports and the module); learner "
+            f"device {probe['device']}, CUDA_VISIBLE_DEVICES {probe['visible']!r} (accelerator "
+            f"ids {probe['accelerator_ids']}), parameters on {probe['param_devices']}, Adam "
+            f"state on {probe['opt_state_devices']}; runners hold {modules}; on {card}")
+        if best < RL_THRESHOLD or not _rl_learner_on_lease(probe) or any(modules):
+            raise AssertionError(f"the rllib phase: PPO: {ppo}")
+        res["ppo"] = ppo
+
+        # APPO to the threshold
+        t0 = time.time()
+        algo = (rl.APPOConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=4, num_envs_per_env_runner=8,
+                             rollout_fragment_length=32)
+                .training(lr=3e-3, entropy_coeff=0.01, train_iter_env_steps=6144,
+                          clip_param=0.3, target_update_freq=4)
+                .learners(num_gpus_per_learner=RL_GPUS).debugging(seed=0).build())
+        build_s = time.time() - t0
+        try:
+            best, iters, last, secs = _rl_until(algo, RL_APPO_ITERS)
+        finally:
+            algo.stop()
+        res["appo"] = {"best": best, "iterations": iters, "build_s": build_s,
+                       "iteration_s": secs, "kl": last["learner/kl"],
+                       "updates": last["num_learner_updates"],
+                       "learner_env_steps_per_s": last["learner/learner_env_steps_per_s"]}
+        log(f"[rllib] APPO on CartPole-v1 (4 runners x 8 envs x 32 steps, 6144 env steps "
+            f"an iteration): mean return {best:.1f} after {iters} iterations (threshold "
+            f"{RL_THRESHOLD}, limit {RL_APPO_ITERS}), {last['num_learner_updates']} updates, "
+            f"learner/kl {last['learner/kl']:.4g}; build {build_s:.2f} s, iteration median "
+            f"{med(secs):.4f} s, the learner's env steps/s in its last iteration "
+            f"{last['learner/learner_env_steps_per_s']:.0f}; on {card}")
+        if best < RL_THRESHOLD or not last["learner/kl"] >= 0.0:
+            raise AssertionError(f"the rllib phase: APPO: {res['appo']}")
+
+        # three iterations each: (name, config, env steps after them: exact or
+        # (low, high)); IMPALA's learner on this process's card (APPO ran the
+        # engine's learner actor; a lease costs 15-25 s of imports)
+        impala = rl.IMPALAConfig().environment("CartPole-v1")
+        impala.remote_learner = False
+        short = (
+            ("impala", impala, RL_SHORT_ITERS * 4096),
+            ("dqn", rl.DQNConfig().environment("CartPole-v1")
+             .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                          rollout_fragment_length=32)
+             .training(lr=1e-3, train_batch_size=256, updates_per_iteration=64,
+                       target_update_freq=2, epsilon_decay_iters=25, learning_starts=500),
+             (0.8 * RL_SHORT_ITERS * 512, RL_SHORT_ITERS * 512)),
+            ("sac", rl.SACConfig().environment("Pendulum-v1")
+             .env_runners(num_env_runners=1, num_envs_per_env_runner=8,
+                          rollout_fragment_length=32)
+             .training(learning_starts=256), RL_SHORT_ITERS * 256),
+            ("multi_agent_ppo", rl.MultiAgentPPOConfig()
+             .environment(lambda: rl.MultiAgentCartPole(num_agents=2))
+             .multi_agent(policy_mapping_fn=lambda aid: aid),
+             (RL_SHORT_ITERS * 2 * 256, RL_SHORT_ITERS * 2 * 2 * 256)),
+        )
+        for name, cfg, want in short:
+            t0 = time.time()
+            algo = cfg.learners(num_gpus_per_learner=RL_GPUS).debugging(seed=0).build()
+            build_s = time.time() - t0
+            try:
+                secs, results = [], []
+                for _ in range(RL_SHORT_ITERS):
+                    t0 = time.perf_counter()
+                    results.append(algo.train())
+                    secs.append(time.perf_counter() - t0)
+            finally:
+                algo.stop()
+            steps = results[-1]["num_env_steps_sampled_lifetime"]
+            losses = {k: v for k, v in results[-1].items() if k.startswith("learner/")}
+            res[name] = {"build_s": build_s, "iteration_s": secs, "env_steps": steps,
+                         "losses": losses}
+            log(f"[rllib] {name}: {RL_SHORT_ITERS} iterations of {[round(s, 4) for s in secs]} "
+                f"s (build {build_s:.2f} s), {steps} env steps, last losses "
+                f"{ {k: round(v, 5) for k, v in losses.items()} }; on {card}")
+            in_range = (steps == want if isinstance(want, int)
+                        else want[0] <= steps <= want[1])
+            if not (_rl_losses_finite(results[-1]) and in_range):
+                raise AssertionError(f"the rllib phase: {name}: {res[name]}")
+
+        # the default config, saved and restored
+        t0 = time.time()
+        algo = (rl.PPOConfig().environment("CartPole-v1")
+                .learners(num_gpus_per_learner=RL_GPUS).build())
+        build_s = time.time() - t0
+        try:
+            secs = []
+            for _ in range(RL_SHORT_ITERS):
+                t0 = time.perf_counter()
+                algo.train()
+                secs.append(time.perf_counter() - t0)
+            path = algo.save(str(Path(scratch) / "ppo"))
+            w0 = algo.get_weights()
+        finally:
+            algo.stop()
+        algo = rl.PPO.from_checkpoint(path)
+        try:
+            restored = [algo.get_weights(), algo.learner_group.get_weights()]
+            resumed = algo.train()["training_iteration"]
+        finally:
+            algo.stop()
+        bitwise = all(w[k][p].tobytes() == w0[k][p].tobytes()
+                      for w in restored for k in w0 for p in ("kernel", "bias"))
+        res["checkpoint"] = {"build_s": build_s, "iteration_s": secs, "bitwise": bitwise,
+                             "resumed_iteration": resumed}
+        log(f"[rllib] PPO at its default config (2 runners x 8 envs x 128 steps, 64 x 64, "
+            f"4 epochs of 512): iterations {[round(s, 4) for s in secs]} s (build "
+            f"{build_s:.2f} s); save / from_checkpoint: weights bitwise in the driver and "
+            f"back from the new learner on the card: {bitwise}, resumed at iteration "
+            f"{resumed}; on {card}")
+        if not bitwise or resumed != RL_SHORT_ITERS + 1:
+            raise AssertionError(f"the rllib phase: checkpoint: {res['checkpoint']}")
+    finally:
+        stop_runtime(rt)
+        import shutil
+
+        shutil.rmtree(scratch, ignore_errors=True)
+    return res
+
+
 def _trainer_ranks_loop(config):
     """The loop of ``--ranks``' trainer: every worker on its leased card, one
     NCCL group over them (brought up by ``TorchTrainer``); GPT-2-124M bf16
@@ -3048,6 +3483,7 @@ def main() -> int:
                                       llama_cpu)
     trainer = phase_trainer(card, train)
     data = phase_data(card, train)
+    rllib = phase_rllib(card)
     del llama_cpu
     spec.pop("same_seed_outputs")
     for key in ("prompts", "outputs", "cpu_model"):
@@ -3171,6 +3607,7 @@ def main() -> int:
     log(f"[serve_deploy] {json.dumps(serve_deploy)}")
     log(f"[trainer] {json.dumps(trainer)}")
     log(f"[data] {json.dumps(data)}")
+    log(f"[rllib] {json.dumps(rllib)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

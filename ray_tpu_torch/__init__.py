@@ -90,13 +90,18 @@ with Tune and placement groups):
                          readers, preprocessors (copies); torch only in
                          iter_torch_batches, which places batches on the card
                          through pinned memory and non-blocking copies
+  rllib/                 RL: CPU env-runner actors (numpy copies of the
+                         policy and of CartPole-v1 / Pendulum-v1) feeding
+                         learners on leased cards: PPO, IMPALA, APPO, DQN,
+                         SAC, multi-agent PPO, BC, MARWIL, offline data
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back. This
 module and the runtime's control plane (the GCS, the raylet, the fork
 server) never import torch: a worker first touches CUDA after its lease's
-``CUDA_VISIBLE_DEVICES`` is set; importing ``train``, ``tune`` or ``data``
-loads no torch either, so a trainer's trial actor never loads it.
+``CUDA_VISIBLE_DEVICES`` is set; importing ``train``, ``tune``, ``data`` or
+``rllib`` loads no torch either, so a trainer's trial actor and an RL env
+runner never load it.
 
 Attribute access is lazy (PEP 562), as in ``ray_tpu``: control-plane
 processes that import only their own submodules don't pay for the API.
@@ -152,7 +157,7 @@ def __getattr__(name):
         import ray_tpu_torch.util as _util
 
         return _util
-    if name in ("train", "serve", "data"):
+    if name in ("train", "serve", "data", "rllib"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

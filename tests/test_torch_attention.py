@@ -288,7 +288,7 @@ _BANNED = ("jax", "jaxlib", "flax", "ray_tpu")
 def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     """Every module of the port (the runtime's too: the GCS, the raylet,
     the workers, the dashboard agent; the trainer, Tune and placement
-    groups; the data package) imports without JAX and without side
+    groups; the data package; RLlib) imports without JAX and without side
     effects: no thread, no child process, no signal handler."""
     code = (
         "import importlib, multiprocessing, pkgutil, signal, sys, threading\n"
@@ -307,7 +307,15 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
         "        'ray_tpu_torch.data', 'ray_tpu_torch.data.block',\n"
         "        'ray_tpu_torch.data.backpressure', 'ray_tpu_torch.data._streaming',\n"
         "        'ray_tpu_torch.data._exchange', 'ray_tpu_torch.data.dataset',\n"
-        "        'ray_tpu_torch.data.preprocessors'} <= set(names)\n"
+        "        'ray_tpu_torch.data.preprocessors', 'ray_tpu_torch.rllib',\n"
+        "        'ray_tpu_torch.rllib.env._classic_control', 'ray_tpu_torch.rllib.env.env_runner',\n"
+        "        'ray_tpu_torch.rllib.env.multi_agent', 'ray_tpu_torch.rllib.core._numpy_policy',\n"
+        "        'ray_tpu_torch.rllib.core.rl_module', 'ray_tpu_torch.rllib.core.learner',\n"
+        "        'ray_tpu_torch.rllib.core.impala_learner', 'ray_tpu_torch.rllib.core.appo_learner',\n"
+        "        'ray_tpu_torch.rllib.algorithms.ppo', 'ray_tpu_torch.rllib.algorithms.impala',\n"
+        "        'ray_tpu_torch.rllib.algorithms.appo', 'ray_tpu_torch.rllib.algorithms.dqn',\n"
+        "        'ray_tpu_torch.rllib.algorithms.sac', 'ray_tpu_torch.rllib.algorithms.multi_agent_ppo',\n"
+        "        'ray_tpu_torch.rllib.algorithms.bc', 'ray_tpu_torch.rllib.offline'} <= set(names)\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not multiprocessing.active_children()\n"
         "assert handlers == {s: signal.getsignal(s) for s in handlers}\n"
