@@ -205,12 +205,43 @@ script exits non-zero:
              the weights bitwise in the driver and in the new learner. BC
              and MARWIL read parquet, which needs pyarrow: they run in the
              CPU tests, their learner here
+ 20. multinode  three nodes on one machine (cluster_utils.Cluster: a head
+             with {"CPU": 2, "GPU": 0}, the card node with {"CPU": 2, "GPU":
+             1}, a CPU-only node with {"CPU": 2, "GPU": 0}: every raylet
+             would claim the card without its explicit count): the GPU total
+             is 1 and list_nodes shows three ALIVE nodes, the GPU on the card
+             node only; GPT-2-124M's seed-0 fp32 weights, one flat array of
+             498 MB in parameter order, put on the head and broadcast_object
+             to the others (3 nodes, 2 transfers), read back on each node by
+             a task with the driver's digest; two num_gpus=0.5 named actors
+             (both on the card node, list_actors says so; a fractional
+             lease keeps the node's CUDA_VISIBLE_DEVICES, one card) build
+             GPT-2-124M on the card from the broadcast array and serve
+             phase 6's 8 prompts x 32 greedy
+             tokens through ActorPool.map_unordered (each actor launches the
+             forward kernel, no plain call; streams equal phase 6's or leave
+             them only at a near tie); the two actors form a util.collective
+             group of 2, each runs TrainStep.loss_and_grads in fp32 on one
+             row of (2, 128) (24 / 12 / 12 launches, no plain call), flattens
+             its gradients into one CUDA tensor, all-reduces it over the
+             host ring (in place, on cuda) and halves it: the loss and every
+             gradient within 1e-4 relative of the full batch's on the card;
+             `python -m ray_tpu_torch.util.client.server --address <gcs>`,
+             and a process that imports only ray_tpu_torch.util.client gets
+             an actor by name and generates two prompts: int token ids equal
+             to the pool's, no torch in that process; remove_node of the
+             CPU-only node shows it DEAD within 30 s; every process stopped.
+             Prints the cluster's start, the broadcast's seconds and MB/s a
+             transfer, the leases' start, the pool's tokens/s beside phases
+             6 and 15, the all-reduce's seconds and GB/s with its host copies
+             apart, the client's round trip and the phase's total
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
 train, MoE on the mesh, the pipeline, the runtime's actor and task, the
-two deployments, the trainer, the trainer fed by a Dataset; every
-full-width path must show 0 plain calls) and, last, ``{"ok": true, "device": ...}``.
+two deployments, the trainer, the trainer fed by a Dataset, the multinode
+pool and gradients; every full-width path must show 0 plain calls) and,
+last, ``{"ok": true, "device": ...}``.
 
 With ``--ranks N`` it needs N cards and runs, after the device and build
 phases, only the mesh path across them: N processes, one card each, over
@@ -384,6 +415,8 @@ RL_APPO_ITERS = 40
 RL_SHORT_ITERS = 3            # IMPALA, DQN, SAC, multi-agent PPO and the checkpoint run
 RL_REL_TOL = 1e-5             # a learner's update, card vs CPU: losses, aux, parameters
 RL_ABS_FLOOR = 1e-7           # for a value zero up to rounding (PPO's first pi_loss)
+MULTINODE_CPUS = 2            # each node's; the card node's two hold the pool's actors
+MULTINODE_DEATH_S = 30        # a removed node's time to show DEAD in list_nodes
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
               "ray_tpu_llm_prefix_hit_rate", "ray_tpu_llm_spec_acceptance")
@@ -3019,6 +3052,426 @@ def phase_rllib(card: str):
     return res
 
 
+def flat_params(model) -> np.ndarray:
+    """Every parameter of ``model``, in its parameter order, as one flat
+    fp32 numpy array on the host."""
+    return torch.cat([p.detach().reshape(-1).cpu() for p in model.parameters()]).numpy()
+
+
+def load_flat(model, flat) -> None:
+    """Fill ``model``'s parameters, in order, from one flat fp32 array (a
+    read-only object-store view is fine: it is copied to the device once)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # a read-only view: only ever read
+        src = torch.from_numpy(flat)
+    src = src.to(next(model.parameters()).device)
+    offset = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(src[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
+    if offset != src.numel():
+        raise AssertionError(f"{src.numel()} weights for {offset} parameters")
+
+
+def _flat_digest(a) -> str:
+    return hashlib.sha256(memoryview(np.ascontiguousarray(a)).cast("B")).hexdigest()
+
+
+def _node_reader(weights):
+    """A task on one node: its node and the digest of the weights as that
+    node's object store holds them."""
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get_runtime_context().get_node_id(), _flat_digest(weights)
+
+
+class MultinodeServer:
+    """A GPU actor of the multinode phase: GPT-2 (``cfg``) in fp32 on its
+    leased card, its weights loaded from the broadcast array (no seed);
+    serves one prompt a call through LLMEngine and computes the gradient
+    of one batch through TrainStep, all-reduced over the host plane."""
+
+    def __init__(self, name: str, cfg, weights):
+        import os
+
+        import ray_tpu_torch
+        from ray_tpu_torch.models.gpt2 import GPT2
+        from ray_tpu_torch.serve.llm.adapters import GPT2Adapter
+
+        t0 = time.perf_counter()
+        model = GPT2(cfg, device=DEVICE)
+        load_flat(model, weights)
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        self.name, self.cfg = name, cfg
+        self.adapter = GPT2Adapter(cfg, model)
+        ctx = ray_tpu_torch.get_runtime_context()
+        self.where = {"node": ctx.get_node_id(),
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                      "accelerator_ids": ctx.get_accelerator_ids(),
+                      "device_count": torch.cuda.device_count()}
+
+    def ready(self):
+        return dict(self.where, build_s=self.build_s)
+
+    def serve(self, item):
+        """``item`` is (request, prompt): the greedy tokens as Python ints,
+        with this call's launches and plain calls."""
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        i, prompt = item
+        engine = LLMEngine(self.adapter, name=f"multinode_{self.name}")
+        reset_counts()
+        outputs, wall = drive_engine(engine, [prompt], SERVE_MAX_TOKENS)
+        counts = read_counts()
+        return {"i": i, "tokens": [int(t) for t in outputs[0]], "wall_s": wall,
+                "launches": counts[0], "plain_calls": counts[3], "actor": self.name}
+
+    def grads(self, group: str, rank: int, idx, targets):
+        """loss_and_grads on one batch, the gradients flattened into one
+        tensor on the card, all-reduced over ``group`` in place, halved.
+        Returns the loss, the counts, the times, the tensor's device and
+        digest, and (rank 0) the halved gradient on the host."""
+        from ray_tpu_torch.parallel.train_step import TrainStep
+        from ray_tpu_torch.util import collective
+
+        ts = TrainStep(self.cfg, device=DEVICE, telemetry=False)
+        # np.array: the arguments arrive as read-only views
+        batch = ts.shard_batch({"idx": np.array(idx), "targets": np.array(targets)})
+        reset_counts()
+        loss, grads = ts.loss_and_grads({"params": self.adapter.model}, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        del grads
+        # the two host copies the all-reduce makes, timed alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = flat.cpu()
+        d2h_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host.to(DEVICE)
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        del host
+        ptr = flat.data_ptr()
+        t0 = time.perf_counter()
+        out = collective.allreduce(flat, group)
+        torch.cuda.synchronize()
+        allreduce_s = time.perf_counter() - t0
+        in_place = (out is flat and flat.data_ptr() == ptr
+                    and flat.device.type == torch.device(DEVICE).type)
+        flat.mul_(0.5)
+        halved = flat.cpu().numpy()
+        return {"loss": loss.item(), "counts": counts, "device": str(out.device),
+                "in_place": in_place, "numel": flat.numel(), "d2h_s": d2h_s,
+                "h2d_s": h2d_s, "allreduce_s": allreduce_s,
+                "digest": _flat_digest(halved),
+                "halved": halved if rank == 0 else None}
+
+
+def _client_lines(proc, sink):
+    for line in proc.stdout:
+        sink.put(line)
+
+
+def stop_cluster(rt, cluster, extra=()) -> None:
+    """Stop the processes ``extra``, ``rt.shutdown()``, ``cluster.shutdown()``,
+    then wait for every process they started (as ``stop_runtime``): any
+    still alive after RUNTIME_STOP_S is killed."""
+    import psutil
+
+    for proc in extra:
+        proc.terminate()
+    procs = psutil.Process().children(recursive=True)
+    try:
+        rt.shutdown()
+    finally:
+        cluster.shutdown()
+    gone, alive = psutil.wait_procs(procs, timeout=RUNTIME_STOP_S)
+    for proc in alive:
+        proc.kill()
+    psutil.wait_procs(alive, timeout=10)
+    log(f"[multinode] shutdown: {len(gone)} of the phase's {len(procs)} "
+        f"processes left within {RUNTIME_STOP_S} s, {len(alive)} killed")
+
+
+def phase_multinode(card: str, serve, runtime):
+    """Three nodes on one machine with the card on one: GPT-2-124M's
+    weights broadcast to every node, served by two GPU actors through an
+    ActorPool and the forward kernel, their half-batch gradients
+    all-reduced as one CUDA tensor over util.collective against the full
+    batch's, a client in a torch-free process, a node's death. Every
+    process the phase started is stopped before it returns or raises."""
+    import os
+    import queue as queue_mod
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, init_params
+    from ray_tpu_torch.parallel.train_step import TrainStep
+    from ray_tpu_torch.util import collective, state
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.broadcast import broadcast_object
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+
+    phase_t0 = time.perf_counter()
+    cfg = GPT2Config.gpt2_124m(dtype=torch.float32)
+    width = (cfg.n_layer, cfg.n_head, cfg.n_embd, cfg.vocab_size, cfg.block_size)
+    if width != SERVE_WIDTH or not cfg.remat:
+        raise AssertionError(f"not GPT-2-124M at full width: {cfg}")
+    weights = flat_params(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    want_digest = _flat_digest(weights)
+    mb = weights.nbytes / 1e6
+    res = {"weights_mb": mb}
+
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"resources": {"CPU": MULTINODE_CPUS, "GPU": 0}})
+    extra = []
+    try:
+        card_node = cluster.add_node(resources={"CPU": MULTINODE_CPUS, "GPU": 1})
+        cpu_node = cluster.add_node(resources={"CPU": MULTINODE_CPUS, "GPU": 0})
+        cluster.wait_for_nodes()
+        rt.init(address=cluster.address)
+        res["cluster_start_s"] = time.perf_counter() - t0
+        card_id, cpu_id = card_node.node_id.hex(), cpu_node.node_id.hex()
+        gpus = rt.cluster_resources().get("GPU", 0)
+        nodes = state.list_nodes()
+        view = sorted((n["state"], n["resources_total"].get("GPU", 0),
+                       n["node_id"] == card_id) for n in nodes)
+        log(f"[multinode] cluster of {len(nodes)} nodes up in "
+            f"{res['cluster_start_s']:.2f} s: GPU total {gpus}; (state, GPU, card "
+            f"node) {view}")
+        if gpus != 1 or view != [("ALIVE", 0, False)] * 2 + [("ALIVE", 1, True)]:
+            raise AssertionError(f"the cluster: GPU {gpus}, nodes {view}")
+
+        # ---- the weights on every node
+        ref = rt.put(weights)
+        t0 = time.perf_counter()
+        stats = broadcast_object(ref)
+        res["broadcast_s"] = time.perf_counter() - t0
+        res["broadcast_rounds"] = stats["rounds"]
+        res["broadcast_mb_s_per_transfer"] = mb * stats["rounds"] / res["broadcast_s"]
+        holders = sorted(n.hex() for n in stats["nodes"])
+        # num_cpus=0: a finished task's lease stays cached a moment for
+        # reuse, and must not hold the card node's CPUs from the actors
+        readers = [rt.remote(num_cpus=0, scheduling_strategy=NodeAffinitySchedulingStrategy(
+            n.node_id.hex()))(_node_reader).remote(ref) for n in cluster.nodes]
+        read = rt.get(readers, timeout=300)
+        log(f"[multinode] broadcast of {mb:.1f} MB: {len(stats['transfers'])} transfers "
+            f"in {stats['rounds']} rounds, {res['broadcast_s']:.3f} s, "
+            f"{res['broadcast_mb_s_per_transfer']:.1f} MB/s a transfer (rounds in "
+            f"series) on one machine; digests on the nodes equal the driver's: "
+            f"{[d == want_digest for _, d in read]}")
+        if (len(stats["transfers"]) != 2 or holders != sorted(n.node_id.hex() for n in cluster.nodes)
+                or sorted(n for n, _ in read) != holders
+                or any(d != want_digest for _, d in read)):
+            raise AssertionError(f"the broadcast: {stats}, {read}")
+
+        # ---- two GPU actors on the card node, serving through a pool
+        names = ("multinode_server_0", "multinode_server_1")
+        t0 = time.perf_counter()
+        servers = [rt.remote(num_gpus=0.5)(MultinodeServer).options(name=name)
+                   .remote(name, cfg, ref) for name in names]
+        ready, lease_s = [], []
+        for s in servers:
+            ready.append(rt.get(s.ready.remote(), timeout=600))
+            lease_s.append(time.perf_counter() - t0)
+        res["lease_start_s"] = lease_s
+        res["actor_build_s"] = [r["build_s"] for r in ready]
+        actors = {a["name"]: a for a in state.list_actors() if a["name"] in names}
+        log(f"[multinode] two num_gpus=0.5 actors ready {[round(s, 2) for s in lease_s]} s "
+            f"after creation (model build and weights to the card "
+            f"{[round(r['build_s'], 2) for r in ready]} s): {ready}; list_actors "
+            f"nodes on the card node: {[a['node_id'] == card_id for a in actors.values()]}")
+        # a fractional lease names no card: the worker keeps its node's view
+        # (the raylet's CUDA_VISIBLE_DEVICES, this process's), one card here
+        node_view = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if (any(r["node"] != card_id or r["visible"] != node_view or r["device_count"] != 1
+                for r in ready)
+                or sorted(actors) != list(names)
+                or any(a["node_id"] != card_id or a["state"] != "ALIVE"
+                       for a in actors.values())):
+            raise AssertionError(f"the pool's actors: {ready}, {actors}")
+
+        prompts = serve["prompts"]
+        pool = ActorPool(servers)
+        runs = []   # the actors' first calls pay their processes' first launches
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append((list(pool.map_unordered(lambda a, item: a.serve.remote(item),
+                                                 list(enumerate(prompts)))),
+                         time.perf_counter() - t0))
+        (cold, cold_s), (served, pool_s) = runs
+        outputs = {r["i"]: r["tokens"] for r in served}
+        if {r["i"]: r["tokens"] for r in cold} != outputs:
+            raise AssertionError(f"the pool's two runs differ: {cold}, {served}")
+        by_actor = {n: [r for r in served if r["actor"] == n] for n in names}
+        n_tokens = SERVE_MAX_TOKENS * len(prompts)
+        res["pool_tokens_per_s"] = n_tokens / pool_s
+        res["pool_tokens_per_s_first_run"] = n_tokens / cold_s
+        res["pool_launches"] = sum(r["launches"] for r in served)
+        res["pool_plain_calls"] = sum(r["plain_calls"] for r in served)
+        differ = {i: next(c for c, (a, b) in enumerate(zip(toks, serve["outputs"][i]))
+                          if a != b)
+                  for i, toks in outputs.items() if toks != serve["outputs"][i]}
+        worst = 0.0
+        if differ:   # each differing stream must be near-greedy from there on
+            gaps = greedy_gaps(serve["cpu_model"], prompts, {i: outputs[i] for i in differ})
+            worst = max(max(g[differ[i]:]) for i, g in gaps.items())
+        res.update(pool_streams_equal=len(outputs) - len(differ),
+                   pool_worst_gap=worst)
+        log(f"[multinode] ActorPool.map_unordered: {len(prompts)} requests x "
+            f"{SERVE_MAX_TOKENS} tokens in {pool_s:.3f} s, {res['pool_tokens_per_s']:.1f} "
+            f"tokens/s (its first run {res['pool_tokens_per_s_first_run']:.1f}; one "
+            f"prompt a call, a new engine each; phase 6 in process {serve['tokens_per_s']:.1f}, phase 15's "
+            f"actor {runtime['serve_tokens_per_s']:.1f}) on {card}; requests per actor "
+            f"{ {n: [r['i'] for r in rs] for n, rs in by_actor.items()} }; launches per "
+            f"actor { {n: sum(r['launches'] for r in rs) for n, rs in by_actor.items()} }, "
+            f"plain calls {res['pool_plain_calls']}; streams equal to phase 6's "
+            f"{res['pool_streams_equal']}/{len(prompts)}, worst gap after a difference "
+            f"{worst:.3g} (limit {GREEDY_TOL})")
+        if (sorted(outputs) != list(range(len(prompts))) or res["pool_plain_calls"]
+                or any(sum(r["launches"] for r in rs) == 0 for rs in by_actor.values())
+                or worst > GREEDY_TOL):
+            raise AssertionError(f"the pool's serving: {served}")
+
+        # ---- half a batch each, the gradients all-reduced on the host plane
+        rng = np.random.default_rng(1)
+        idx = rng.integers(0, cfg.vocab_size, PARITY_BATCH)
+        targets = np.roll(idx, -1, axis=1)
+        collective.create_collective_group(servers, 2, [0, 1], group_name="multinode_grads")
+        halves = rt.get([s.grads.remote("multinode_grads", r, idx[r:r + 1], targets[r:r + 1])
+                         for r, s in enumerate(servers)], timeout=600)
+        ts = TrainStep(cfg, device=DEVICE, telemetry=False)
+        model = GPT2(cfg, device=DEVICE)
+        load_flat(model, weights)
+        names_sizes = [(n, p.numel()) for n, p in model.named_parameters()]
+        loss_full, grads_full = ts.loss_and_grads(
+            {"params": model}, ts.shard_batch({"idx": idx, "targets": targets}))
+        halved = torch.from_numpy(halves[0]["halved"])
+        offset, grad_rel = 0, 0.0
+        for name, n in names_sizes:
+            want = grads_full[name].detach().reshape(-1).cpu()
+            if want.norm() > 0:
+                got = halved[offset:offset + n]
+                grad_rel = max(grad_rel, ((got - want).norm() / want.norm()).item())
+            offset += n
+        loss_half = (halves[0]["loss"] + halves[1]["loss"]) / 2
+        loss_rel = abs(loss_half - loss_full.item()) / abs(loss_full.item())
+        del model, grads_full, ts
+        torch.cuda.empty_cache()
+        want_counts = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer, 0)
+        nbytes = halves[0]["numel"] * 4
+        res.update(grads_launches=[sum(h["counts"][k] for h in halves) for k in range(3)],
+                   grads_plain_calls=sum(h["counts"][3] for h in halves),
+                   grads_loss_rel_err=loss_rel, grads_rel_err=grad_rel,
+                   allreduce_s=[h["allreduce_s"] for h in halves],
+                   allreduce_gb_s=[nbytes / h["allreduce_s"] / 1e9 for h in halves],
+                   allreduce_d2h_s=[h["d2h_s"] for h in halves],
+                   allreduce_h2d_s=[h["h2d_s"] for h in halves])
+        log(f"[multinode] gradients: rows {PARITY_BATCH[0]} of {PARITY_BATCH} on two "
+            f"actors, counts (fwd, dq, dkv, plain) {[h['counts'] for h in halves]} "
+            f"(expected {want_counts} each); one {nbytes / 1e6:.1f} MB fp32 tensor each "
+            f"on {[h['device'] for h in halves]}, all-reduced in place "
+            f"{[h['in_place'] for h in halves]} in "
+            f"{[round(s, 3) for s in res['allreduce_s']]} s "
+            f"({[round(g, 3) for g in res['allreduce_gb_s']]} GB/s of payload over the "
+            f"host ring of 2; its host copies alone: to the host "
+            f"{[round(s, 3) for s in res['allreduce_d2h_s']]} s, back "
+            f"{[round(s, 3) for s in res['allreduce_h2d_s']]} s) on {card}; halved "
+            f"against the full batch's loss_and_grads on the card: loss rel "
+            f"{loss_rel:.3g}, largest gradient rel (norm) {grad_rel:.3g} (limit "
+            f"{RANKS_REL_TOL}); ranks' digests equal "
+            f"{halves[0]['digest'] == halves[1]['digest']}")
+        if (any(tuple(h["counts"]) != want_counts or not h["in_place"]
+                or not h["device"].startswith(torch.device(DEVICE).type) for h in halves)
+                or halves[0]["digest"] != halves[1]["digest"]
+                or offset != halved.numel() or max(loss_rel, grad_rel) > RANKS_REL_TOL):
+            raise AssertionError(f"the all-reduced gradients: loss {loss_rel}, grads "
+                                 f"{grad_rel}, {[dict(h, halved=None) for h in halves]}")
+
+        # ---- a client in a process without torch
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        server = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.util.client.server",
+             "--address", cluster.address, "--port", "0"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        extra.append(server)
+        lines = queue_mod.Queue()
+        threading.Thread(target=_client_lines, args=(server, lines), daemon=True).start()
+        port, seen = None, []
+        deadline = time.time() + 120
+        while port is None and time.time() < deadline:
+            try:
+                line = lines.get(timeout=1)
+            except queue_mod.Empty:
+                if server.poll() is not None:
+                    break
+                continue
+            seen.append(line)
+            if "client server listening on" in line:
+                port = int(line.strip().rsplit(" ", 1)[1])
+        if port is None:
+            raise AssertionError(f"the client server did not start: {''.join(seen)}")
+        code = (
+            "import json, sys, time\n"
+            "from ray_tpu_torch.util import client\n"
+            "t0 = time.perf_counter()\n"
+            "ctx = client.connect(sys.argv[1])\n"
+            "h = ctx.get_actor(sys.argv[2])\n"
+            "got = ctx.get([h.serve.remote(item) for item in json.loads(sys.argv[3])])\n"
+            "rt_s = time.perf_counter() - t0\n"
+            "ctx.disconnect()\n"
+            "print(json.dumps({'tokens': [g['tokens'] for g in got], 'round_trip_s': rt_s,\n"
+            "    'ints': all(type(t) is int for g in got for t in g['tokens']),\n"
+            "    'torch': sorted(m for m in sys.modules if m.split('.')[0] == 'torch')}))\n")
+        items = [[i, prompts[i]] for i in (0, 1)]
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", code, f"127.0.0.1:{port}", names[1],
+                               json.dumps(items)],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        client_s = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise AssertionError(f"the client failed: {done.stdout}{done.stderr}")
+        got = json.loads(done.stdout.strip().splitlines()[-1])
+        res.update(client_round_trip_s=got["round_trip_s"], client_process_s=client_s)
+        log(f"[multinode] client (a process that imports only ray_tpu_torch.util.client): "
+            f"connect, get_actor and two requests x {SERVE_MAX_TOKENS} tokens in "
+            f"{got['round_trip_s']:.3f} s ({client_s:.2f} s with its interpreter); "
+            f"token ids ints: {got['ints']}, equal to the pool's: "
+            f"{got['tokens'] == [outputs[0], outputs[1]]}; torch modules in the client: "
+            f"{got['torch']}")
+        if got["tokens"] != [outputs[0], outputs[1]] or got["torch"] or not got["ints"]:
+            raise AssertionError(f"the client: {got}")
+
+        # ---- a node's death
+        t0 = time.perf_counter()
+        cluster.remove_node(cpu_node)
+        states = {}
+        while time.perf_counter() - t0 < MULTINODE_DEATH_S:
+            states = {n["node_id"]: n["state"] for n in state.list_nodes()}
+            if states.get(cpu_id) == "DEAD":
+                break
+            time.sleep(0.2)
+        res["node_dead_s"] = time.perf_counter() - t0
+        log(f"[multinode] remove_node of the CPU-only node: list_nodes shows it "
+            f"{states.get(cpu_id)} after {res['node_dead_s']:.2f} s (limit "
+            f"{MULTINODE_DEATH_S} s); the others {sorted(s for n, s in states.items() if n != cpu_id)}")
+        if states.get(cpu_id) != "DEAD":
+            raise AssertionError(f"the removed node: {states}")
+    finally:
+        stop_cluster(rt, cluster, extra)
+    res["total_s"] = time.perf_counter() - phase_t0
+    log(f"[multinode] phase {res['total_s']:.1f} s on {card}")
+    return res
+
+
 def _trainer_ranks_loop(config):
     """The loop of ``--ranks``' trainer: every worker on its leased card, one
     NCCL group over them (brought up by ``TorchTrainer``); GPT-2-124M bf16
@@ -3484,6 +3937,7 @@ def main() -> int:
     trainer = phase_trainer(card, train)
     data = phase_data(card, train)
     rllib = phase_rllib(card)
+    multinode = phase_multinode(card, serve, runtime)
     del llama_cpu
     spec.pop("same_seed_outputs")
     for key in ("prompts", "outputs", "cpu_model"):
@@ -3507,7 +3961,9 @@ def main() -> int:
                    "serve_deploy": serve_deploy["plain_calls"],
                    "serve_deploy_spec": serve_deploy["spec"]["plain_calls"],
                    "trainer": trainer["plain_calls"],
-                   "data": data["plain_calls"]}
+                   "data": data["plain_calls"],
+                   "multinode_pool": multinode["pool_plain_calls"],
+                   "multinode_grads": multinode["grads_plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -3530,7 +3986,9 @@ def main() -> int:
                              "serve_deploy": serve_deploy["launches"],
                              "serve_deploy_spec": serve_deploy["spec"]["launches"],
                              "trainer": trainer["launches"][0],
-                             "data": data["launches"][0]},
+                             "data": data["launches"][0],
+                             "multinode_pool": multinode["pool_launches"],
+                             "multinode_grads": multinode["grads_launches"][0]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -3567,7 +4025,9 @@ def main() -> int:
                                                    ("runtime_train",
                                                     {"launches": runtime["train_launches"]}),
                                                    ("trainer", trainer),
-                                                   ("data", data))},
+                                                   ("data", data),
+                                                   ("multinode_grads",
+                                                    {"launches": multinode["grads_launches"]}))},
             "max_abs_err": max(c["abs_err"][o] for c in fp32_bwd for o in outputs),
             "max_abs_err_by_dtype": {dt: max(c["abs_err"][o] for c in bwd_cases
                                              if c["dtype"] == dt for o in outputs)
@@ -3580,7 +4040,7 @@ def main() -> int:
             "plain_calls_by_path": {path: plain_calls[path] for path in
                                     ("train", "llama_train", "moe_train", "mesh",
                                      "moe_mesh", "pipeline", "runtime_train", "trainer",
-                                     "data")},
+                                     "data", "multinode_grads")},
             "design": DESIGN[name],
             "tflops": bwd_head[kernel]["tflops"],
             "bound_share": bwd_head[kernel]["bound_share"],
@@ -3608,6 +4068,7 @@ def main() -> int:
     log(f"[trainer] {json.dumps(trainer)}")
     log(f"[data] {json.dumps(data)}")
     log(f"[rllib] {json.dumps(rllib)}")
+    log(f"[multinode] {json.dumps(multinode)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ with its plain PyTorch version beside it.
 What is ported so far (the serving and training slices, every model
 family of the JAX zoo, speculative decoding, the metrics and the flight
 recorder, the training step on a mesh of dp, fsdp, tp, sp, ep and pp, the
-runtime's core on one node, the serve deployment on it, and the trainer
-with Tune and placement groups):
+runtime's core, the serve deployment on it, the trainer with Tune and
+placement groups, data, RLlib, and several nodes on one machine with the
+rest of ``util``):
 
   api.py, actor.py,      init / remote / get / put / wait / kill / shutdown,
   remote_function.py,    actors and tasks with ``num_gpus`` (copies of the
@@ -94,6 +95,15 @@ with Tune and placement groups):
                          policy and of CartPole-v1 / Pendulum-v1) feeding
                          learners on leased cards: PPO, IMPALA, APPO, DQN,
                          SAC, multi-agent PPO, BC, MARWIL, offline data
+  cluster_utils.py       Cluster: several raylets on one machine under one
+                         GCS, each with the resources it is given (copies)
+  util/                  broadcast_object (tree fan-out of raylet pushes),
+                         the state API (list_* and the memory report),
+                         ActorPool, Queue, Pool, inspect_serializability,
+                         the client and its server, OpenLoopLoadGen, and
+                         collective: the host plane's TCP ring, with torch
+                         tensors on any device (NCCL stays
+                         torch.distributed's, in parallel/)
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back. This
@@ -157,7 +167,11 @@ def __getattr__(name):
         import ray_tpu_torch.util as _util
 
         return _util
-    if name in ("train", "serve", "data", "rllib"):
+    if name == "cluster_utils":
+        import ray_tpu_torch.cluster_utils as _cu
+
+        return _cu
+    if name in ("train", "tune", "serve", "data", "rllib"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

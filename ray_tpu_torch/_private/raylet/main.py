@@ -3089,6 +3089,17 @@ def main(argv=None):
             object_store_memory=args.object_store_memory or None,
         )
         port = await nm.start(args.port)
+        # SIGTERM (a node's shutdown) ends the raylet as it always has, once
+        # the store's segment is unlinked: its name and pages would outlive
+        # the node in /dev/shm (a segment a raylet, each holding its objects)
+        import signal
+
+        def _on_term():
+            PlasmaClient.unlink(nm.plasma_name)
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, _on_term)
         if args.port_file:
             tmp = args.port_file + ".tmp"
             with open(tmp, "w") as f:

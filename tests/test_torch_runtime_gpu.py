@@ -212,6 +212,10 @@ def test_control_plane_imports_leave_torch_out_in_a_fresh_interpreter():
         "from ray_tpu_torch import serve\n"
         "from ray_tpu_torch.serve import _controller, _handle, _proxy, _replica, llm, rpc_ingress\n"
         "llm.deploy, llm.stream, llm.generate  # the deployment's entry points\n"
+        "ray_tpu_torch.tune, ray_tpu_torch.cluster_utils  # lazy attributes\n"
+        "from ray_tpu_torch.util import (actor_pool, broadcast, check_serialize, client,\n"
+        "                                collective, loadgen, multiprocessing, queue, state)\n"
+        "from ray_tpu_torch.util.client import server\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
