@@ -235,13 +235,40 @@ script exits non-zero:
              transfer, the leases' start, the pool's tokens/s beside phases
              6 and 15, the all-reduce's seconds and GB/s with its host copies
              apart, the client's round trip and the phase's total
+ 21. dag      a compiled graph on the runtime (a new init(num_cpus=4), kept
+             for phase 22): GPT-2-124M (bf16 compute, seed-0 weights as the
+             JAX package's flax tree through load_flax_params) split over two
+             num_gpus=0.5 actors on the card, stage a (wte, wpe, blocks 0-5)
+             and stage b (blocks 6-11, ln_f, the tied head); with
+             InputNode() as inp: out = b.tail.bind(a.head.bind(inp)),
+             experimental_compile(buffer_size_bytes=16 MiB): 8 executes of
+             (4, 512) token batches, each awaited, then 4 in flight. Checks:
+             the last position's logits within 1e-3 of the max logit of the
+             one-process forward on the card (bitwise printed) and the
+             greedy tokens, the forward kernel's launch counter read inside
+             each actor through __ray_call__ (6 a stage per execute, no plain
+             call), a (1, 1025) input raising ValueError at the driver's get()
+             with the graph going on, the in-flight, eager and repeated
+             outputs equal; LearnerGroup(mesh_devices=cards + 1) raises before
+             any actor. Prints ms per execute, compiled beside the same two
+             stages chained by eager .remote calls, the hidden state's copies
+             to the host and back timed apart, compile and teardown seconds
+ 22. workflow  a durable workflow of two num_gpus=1 steps: GPT-2-124M's
+             forward on the card giving the greedy tokens of a (4, 512) batch
+             as numpy, then a step that fails on its first run and returns a
+             CUDA tensor of the tokens on its second; workflow.resume finishes
+             it. Checks: step 1 ran once (12 launches, no plain call), the
+             step ids and meta keys, the output equal to a fresh run's, the
+             CUDA tensor back from resume and from storage as a CPU tensor.
+             Every process the runtime started is stopped
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
 train, MoE on the mesh, the pipeline, the runtime's actor and task, the
 two deployments, the trainer, the trainer fed by a Dataset, the multinode
-pool and gradients; every full-width path must show 0 plain calls) and,
-last, ``{"ok": true, "device": ...}``.
+pool and gradients, the two DAG stages and the workflow step; every
+full-width path must show 0 plain calls) and, last,
+``{"ok": true, "device": ...}``.
 
 With ``--ranks N`` it needs N cards and runs, after the device and build
 phases, only the mesh path across them: N processes, one card each, over
@@ -276,7 +303,13 @@ within 1e-3 relative of the dp N run above, step times beside its
 median), and one fp32 step of the 4-layer
 GPT-2-124M-width model on that mesh against the one-device step on each
 card (1e-4 relative, 2 * lr). Last, the port's
-runtime on the N cards: init detects N GPUs, and N / 2 actors of
+runtime on the N cards: a LearnerGroup of N dp learner ranks
+(mesh_devices=N, one card each, NCCL) takes PPO's update_from_batch (two
+epochs of odd 127-row minibatches) and DQN's update of 254 rows on one
+fixed CartPole-v1 batch, against a one-card learner (mesh_devices=1) that
+pads each minibatch to N: aux within 1e-5 relative, parameters within
+1e-5 relative or 2 * lr, the ranks' parameters bitwise equal, each
+update's ms on one card and on N; init detects N GPUs, and N / 2 actors of
 num_gpus=2 get disjoint pairs covering them all, each seeing 2 cards;
 then llm.deploy(model="gpt2", num_replicas=N) puts N replicas on N
 distinct cards, 4 x 8 concurrent streams reach every replica (each
@@ -417,6 +450,12 @@ RL_REL_TOL = 1e-5             # a learner's update, card vs CPU: losses, aux, pa
 RL_ABS_FLOOR = 1e-7           # for a value zero up to rounding (PPO's first pi_loss)
 MULTINODE_CPUS = 2            # each node's; the card node's two hold the pool's actors
 MULTINODE_DEATH_S = 30        # a removed node's time to show DEAD in list_nodes
+DAG_BATCH = (4, 512)          # token rows through the two-stage graph and the workflow
+DAG_STEPS = 8                 # executes on the main path, each awaited before the next
+DAG_IN_FLIGHT = 4             # executes before the first get (depth-1 channels hold 4)
+DAG_BUFFER = 16 << 20         # a channel's bytes: the (4, 512, 768) bf16 hidden state is 3 MiB
+RL_DP_PPO = dict(num_epochs=2, minibatch_size=127, seed=0)   # odd: each minibatch padded
+RL_DP_DQN_ROWS = 254          # DQN rows of the dp check: two rows of pad over four ranks
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
               "ray_tpu_llm_prefix_hit_rate", "ray_tpu_llm_spec_acceptance")
@@ -3472,6 +3511,365 @@ def phase_multinode(card: str, serve, runtime):
     return res
 
 
+def flax_tree(model) -> dict:
+    """``model``'s parameters as the JAX package's flax tree (nested dicts
+    of fp32 numpy arrays, dense kernels as (in, out)): what
+    ``load_flax_params`` reads."""
+    from ray_tpu_torch.models._flax import flax_path
+
+    tree = {}
+    for name, p in model.named_parameters():
+        path = flax_path(model, name).split("/")
+        arr = p.detach().cpu().numpy()
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T if path[-1] == "kernel" else arr)
+    return tree
+
+
+def sync() -> None:
+    """Wait for the card's queue (nothing to wait for on the CPU)."""
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class DagStage:
+    """A stage of phase 21 on a num_gpus=0.5 lease of the card: half of
+    GPT-2-124M (``cfg``, bf16 compute), loaded from the flax tree through
+    ``load_flax_params``. Stage "a" keeps wte, wpe and the first half of the
+    blocks; stage "b" the second half, ln_f and the tied head (wte)."""
+
+    def __init__(self, part: str, cfg, tree):
+        import ray_tpu_torch
+        from ray_tpu_torch.models.gpt2 import GPT2, load_flax_params
+
+        t0 = time.perf_counter()
+        model = GPT2(cfg, device=DEVICE)
+        load_flax_params(model, tree)
+        half = cfg.n_layer // 2
+        blocks = list(model.h)
+        model.h = torch.nn.ModuleList(blocks[:half] if part == "a" else blocks[half:])
+        if part == "a":
+            model.ln_f = None
+        else:
+            model.wpe = None
+        sync()
+        self.build_s = time.perf_counter() - t0
+        self.part, self.model, self.cfg, self.last = part, model, cfg, None
+        self.where = {"part": part, "node": ray_tpu_torch.get_runtime_context().get_node_id(),
+                      "device": str(next(model.parameters()).device),
+                      "device_count": torch.cuda.device_count(),
+                      "blocks": len(model.h),
+                      "params": sum(p.numel() for p in model.parameters())}
+
+    def ready(self):
+        return dict(self.where, build_s=self.build_s)
+
+    def head(self, idx):
+        """Token ids (B, T) to the hidden state after the first half (bf16,
+        on the card; the channel copies it to the host)."""
+        idx = np.asarray(idx)
+        if idx.ndim != 2 or idx.shape[1] > self.cfg.block_size:
+            raise ValueError(f"token ids of shape {idx.shape}: a stage takes (B, T) "
+                             f"with T <= {self.cfg.block_size}")
+        with torch.inference_mode():
+            idx = torch.from_numpy(idx.astype(np.int64)).to(DEVICE)
+            pos = torch.arange(idx.shape[1], device=DEVICE)
+            x = self.model.wte(idx) + self.model.wpe(pos)[None]
+            for block in self.model.h:
+                x = block(x)
+        self.last = x
+        return x
+
+    def tail(self, x):
+        """The hidden state (a CPU tensor off the channel) through the second
+        half, ln_f and the head: the last position's logits in fp32 and every
+        position's greedy token."""
+        with torch.inference_mode():
+            x = x.to(DEVICE)
+            for block in self.model.h:
+                x = block(x)
+            logits = self.model.head(x)
+            return {"last": logits[:, -1].float(), "greedy": logits.argmax(-1)}
+
+    def copies(self, reps: int = 5):
+        """The copies a channel hop makes of the last hidden state, timed
+        apart: to the host and back to the card (medians, ms)."""
+        h, d2h, h2d = self.last, [], []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            host = h.cpu()
+            d2h.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            host.to(DEVICE)
+            sync()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        return {"bytes": h.numel() * h.element_size(), "dtype": dtype_name(h.dtype),
+                "d2h_ms": statistics.median(d2h), "h2d_ms": statistics.median(h2d)}
+
+
+def _stage_reset(stage) -> bool:
+    reset_counts()
+    return True
+
+
+def _stage_counts(stage):
+    return list(read_counts())
+
+
+def phase_dag(card: str, rt):
+    """Phase 21: GPT-2-124M split over two num_gpus=0.5 actors on the card,
+    ``b.tail.bind(a.head.bind(inp))`` compiled; its logits against the
+    one-process forward, the forward kernel's launches in each stage, a
+    raising input, compiled against eager ms, the hidden state's copies,
+    teardown; then a dp learner of more cards than the machine has must
+    raise. The caller's runtime (``rt``) is up; the phase kills its actors."""
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, init_params, load_flax_params
+    from ray_tpu_torch.rllib.core.learner import LearnerGroup
+
+    phase_t0 = time.perf_counter()
+    cfg = GPT2Config.gpt2_124m(dtype=torch.bfloat16)
+    width = (cfg.n_layer, cfg.n_head, cfg.n_embd, cfg.vocab_size, cfg.block_size)
+    if width != SERVE_WIDTH:
+        raise AssertionError(f"not GPT-2-124M at full width: {cfg}")
+    tree = flax_tree(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(21)
+    batches = [rng.integers(0, cfg.vocab_size, DAG_BATCH) for _ in range(DAG_STEPS)]
+    ref_model = load_flax_params(GPT2(cfg, device=DEVICE), tree)
+    with torch.inference_mode():
+        ref = []
+        for bt in batches:
+            logits = ref_model(torch.from_numpy(bt).to(DEVICE))
+            ref.append({"last": logits[:, -1].float().cpu(), "greedy": logits.argmax(-1).cpu()})
+    del ref_model, logits
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    res = {}
+
+    t0 = time.perf_counter()
+    stage = rt.remote(num_gpus=0.5)(DagStage)
+    a, b = stage.remote("a", cfg, tree), stage.remote("b", cfg, tree)
+    ready = rt.get([a.ready.remote(), b.ready.remote()], timeout=600)
+    res["actors_ready_s"] = time.perf_counter() - t0
+    log(f"[dag] two num_gpus=0.5 stage actors ready in {res['actors_ready_s']:.2f} s: "
+        f"{ready}")
+    on = "cuda:0" if torch.device(DEVICE).type == "cuda" else "cpu"
+    if (any(r["device"] != on or r["blocks"] != cfg.n_layer // 2 for r in ready)
+            or ready[0]["node"] != ready[1]["node"]):
+        raise AssertionError(f"the stages: {ready}")
+
+    with InputNode() as inp:
+        out = b.tail.bind(a.head.bind(inp))
+    t0 = time.perf_counter()
+    dag = out.experimental_compile(buffer_size_bytes=DAG_BUFFER)
+    res["compile_s"] = time.perf_counter() - t0
+    try:
+        dag.execute(batches[0]).get(timeout=600)   # the stages' first launches
+        rt.get([h.__ray_call__.remote(_stage_reset) for h in (a, b)], timeout=60)
+        got, ms = [], []
+        for bt in batches:   # the main path
+            t0 = time.perf_counter()
+            got.append(dag.execute(bt).get(timeout=300))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = rt.get([h.__ray_call__.remote(_stage_counts) for h in (a, b)], timeout=60)
+        t0 = time.perf_counter()
+        pending = [dag.execute(bt) for bt in batches[:DAG_IN_FLIGHT]]
+        piped = [r.get(timeout=300) for r in pending]
+        res["in_flight_ms_per_execute"] = (time.perf_counter() - t0) * 1e3 / DAG_IN_FLIGHT
+        try:
+            dag.execute(np.zeros((1, cfg.block_size + 1), np.int64)).get(timeout=120)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        again = dag.execute(batches[0]).get(timeout=300)
+        copies = rt.get(a.copies.remote(), timeout=120)
+    finally:
+        t0 = time.perf_counter()
+        dag.teardown()
+        res["teardown_s"] = time.perf_counter() - t0
+    eager_ms, eager = [], []
+    rt.get(b.tail.remote(a.head.remote(batches[0])), timeout=300)
+    for bt in batches:
+        t0 = time.perf_counter()
+        eager.append(rt.get(b.tail.remote(a.head.remote(bt)), timeout=300))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    for h in (a, b):
+        rt.kill(h)
+
+    err = max(float((g["last"] - r["last"]).abs().max() / r["last"].abs().max())
+              for g, r in zip(got, ref))
+    bitwise = all(_bitwise_equal(g["last"], r["last"]) and torch.equal(g["greedy"], r["greedy"])
+                  for g, r in zip(got, ref))
+    greedy_share = statistics.mean(float((g["greedy"] == r["greedy"]).float().mean())
+                                   for g, r in zip(got, ref))
+    same = all(torch.equal(x["last"], y["last"]) for x, y in zip(piped + eager + [again],
+                                                                   got[:DAG_IN_FLIGHT] + got + got[:1]))
+    n = DAG_STEPS
+    want = [cfg.n_layer // 2 * n, 0, 0, 0]   # 6 a stage per execute at 12 layers
+    res.update(
+        stage_counts={"a": counts[0], "b": counts[1]}, launches_a=counts[0][0],
+        launches_b=counts[1][0], plain_calls_a=counts[0][3], plain_calls_b=counts[1][3],
+        compiled_ms=ms, median_compiled_ms=statistics.median(ms), eager_ms=eager_ms,
+        median_eager_ms=statistics.median(eager_ms), logits_rel_err=err, bitwise=bitwise,
+        greedy_equal_share=greedy_share, copies=copies, raised=raised,
+        outputs_agree=same, stages=ready)
+    log(f"[dag] compiled ({DAG_BUFFER >> 20} MiB channels, compile {res['compile_s']:.2f} s): "
+        f"{n} executes of {DAG_BATCH} tokens, median {res['median_compiled_ms']:.2f} ms each "
+        f"awaited, {res['in_flight_ms_per_execute']:.2f} ms each with {DAG_IN_FLIGHT} in "
+        f"flight; eager .remote chain median {res['median_eager_ms']:.2f} ms, on {card}; "
+        f"launches (fwd, dq, dkv, plain) a {counts[0]}, b {counts[1]} (expected {want} "
+        f"each); last-position logits against the one-process forward: largest "
+        f"difference {err:.3g} of the max logit (limit {LOGIT_TOL}), bitwise {bitwise}, "
+        f"greedy tokens equal {greedy_share:.4f}; pipelined, eager and repeated outputs "
+        f"equal {same}; a (1, {cfg.block_size + 1}) input raised at get(): {raised!r}; "
+        f"the hidden state's copies ({copies['bytes']} B {copies['dtype']}) to the host "
+        f"{copies['d2h_ms']:.3f} ms, back {copies['h2d_ms']:.3f} ms; teardown "
+        f"{res['teardown_s']:.3f} s")
+    if (counts[0] != want or counts[1] != want or err > LOGIT_TOL or not same
+            or raised is None or "T <=" not in raised):
+        raise AssertionError(f"the dag phase: {res}")
+
+    # a dp learner of more cards than the machine has raises before a step
+    cards = int(rt.cluster_resources().get("GPU", 0))
+    try:
+        LearnerGroup(4, 2, config={"mesh_devices": cards + 1})
+        dp_error = None
+    except RuntimeError as e:
+        dp_error = str(e)
+    res["dp_over_cards_error"] = dp_error
+    log(f"[dag] LearnerGroup(mesh_devices={cards + 1}) on {cards} card(s): {dp_error!r}")
+    if dp_error is None or f"cluster has {float(cards)} GPUs" not in dp_error:
+        raise AssertionError(f"mesh_devices={cards + 1} on {cards} cards: {dp_error!r}")
+    res["total_s"] = time.perf_counter() - phase_t0
+    log(f"[dag] phase {res['total_s']:.1f} s on {card}")
+    return res
+
+
+def _wf_forward(cfg, seed: int, runs_path: str):
+    """Workflow step 1 (num_gpus=1): GPT-2 (``cfg``) from seed 0 on the
+    lease's card, the greedy tokens of a seeded DAG_BATCH as numpy, with this
+    call's launch counts; each run appends to ``runs_path``."""
+    from ray_tpu_torch.models.gpt2 import init_params
+
+    with open(runs_path, "a") as f:
+        f.write("1")
+    model = init_params(cfg, torch.Generator().manual_seed(0), device=DEVICE)
+    idx = np.random.default_rng(seed).integers(0, cfg.vocab_size, DAG_BATCH)
+    reset_counts()
+    with torch.inference_mode():
+        tokens = model(torch.from_numpy(idx).to(DEVICE)).argmax(-1).cpu().numpy()
+    sync()
+    return {"tokens": tokens, "counts": list(read_counts())}
+
+
+def _wf_finish(step1, flag_path: str):
+    """Workflow step 2 (num_gpus=1): raises while ``flag_path`` exists; then
+    returns step 1's tokens beside a CUDA tensor of them on its card (what
+    storage keeps of a CUDA tensor)."""
+    import os
+
+    if os.path.exists(flag_path):
+        raise RuntimeError("injected failure")
+    on_card = torch.from_numpy(np.array(step1["tokens"])).to(DEVICE)
+    return {"tokens": step1["tokens"], "counts": step1["counts"], "on_card": on_card,
+            "device": str(on_card.device)}
+
+
+def phase_workflow(card: str, rt):
+    """Phase 22: a durable workflow of two num_gpus=1 steps (GPT-2-124M's
+    forward, then a step that fails once), resumed; step 1 does not run
+    again, the output equals a fresh run's, and the CUDA tensor step 2
+    returned comes back from storage as a CPU tensor."""
+    import os
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+
+    phase_t0 = time.perf_counter()
+    cfg = GPT2Config.gpt2_124m(dtype=torch.bfloat16)
+    storage = tempfile.mkdtemp(prefix="rtpu_torch_workflow_")
+    try:
+        workflow.init(storage=storage)
+        forward = rt.remote(num_gpus=1)(_wf_forward)
+        finish = rt.remote(num_gpus=1)(_wf_finish)
+        runs, flag = os.path.join(storage, "runs"), os.path.join(storage, "flag")
+        with open(flag, "w"):
+            pass
+        res = {}
+        t0 = time.perf_counter()
+        try:
+            workflow.run(finish.bind(forward.bind(cfg, 22, runs), flag), workflow_id="phase22")
+            first = None
+        except Exception as e:  # noqa: BLE001 — the injected failure
+            first = type(e).__name__
+        res["first_run_s"] = time.perf_counter() - t0
+        status_failed = workflow.get_status("phase22")
+        steps_failed = sorted(os.listdir(os.path.join(storage, "phase22", "steps")))
+        os.remove(flag)
+        t0 = time.perf_counter()
+        out = workflow.resume("phase22")
+        res["resume_s"] = time.perf_counter() - t0
+        with open(runs) as f:
+            step1_runs = f.read()
+        stored = workflow.get_output("phase22")
+        t0 = time.perf_counter()
+        fresh = workflow.run(finish.bind(forward.bind(cfg, 22, runs + "_fresh"), flag),
+                             workflow_id="phase22_fresh")
+        res["fresh_run_s"] = time.perf_counter() - t0
+        steps = sorted(os.listdir(os.path.join(storage, "phase22", "steps")))
+        with open(os.path.join(storage, "phase22", "meta.json")) as f:
+            meta = sorted(json.load(f))
+        status = workflow.get_status("phase22")
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    want = [cfg.n_layer, 0, 0, 0]
+    on_card = out["on_card"]
+    res.update(
+        first_error=first, status_after_failure=status_failed, steps_after_failure=steps_failed,
+        status=status, steps=steps, meta_keys=meta, step1_runs=len(step1_runs),
+        step1_counts=out["counts"], launches=out["counts"][0], plain_calls=out["counts"][3],
+        step2_device=out["device"],
+        resumed_tensor={"type": type(on_card).__name__, "device": str(on_card.device),
+                        "dtype": str(on_card.dtype)},
+        equals_fresh=bool(np.array_equal(out["tokens"], fresh["tokens"])))
+    log(f"[workflow] two num_gpus=1 steps: the first run {first} after "
+        f"{res['first_run_s']:.2f} s (status {status_failed}, steps stored "
+        f"{steps_failed}); resume {res['resume_s']:.2f} s, status {status}, steps "
+        f"{steps}, meta keys {meta}; step 1 ran {len(step1_runs)} time(s), its "
+        f"launches (fwd, dq, dkv, plain) {out['counts']} (expected {want}); step 2 on "
+        f"{out['device']}; the CUDA tensor it returned came back from resume as a "
+        f"{res['resumed_tensor']} (from storage: {type(stored['on_card']).__name__} on "
+        f"{stored['on_card'].device}); output equal to a fresh run's "
+        f"{res['equals_fresh']} (fresh run {res['fresh_run_s']:.2f} s) on {card}")
+    if (first is None or status_failed != workflow.FAILED or status != workflow.SUCCESSFUL
+            or steps_failed != ["r.0__wf_forward.pkl"] or len(step1_runs) != 1
+            or out["counts"] != want or not res["equals_fresh"]
+            or not out["device"].startswith(torch.device(DEVICE).type)
+            or on_card.device.type != "cpu" or stored["on_card"].device.type != "cpu"
+            or not np.array_equal(on_card.numpy(), out["tokens"])):
+        raise AssertionError(f"the workflow phase: {res}")
+    res["total_s"] = time.perf_counter() - phase_t0
+    log(f"[workflow] phase {res['total_s']:.1f} s on {card}")
+    return res
+
+
+def phase_graphs(card: str):
+    """Phases 21 and 22 on one runtime (``init(num_cpus=4)``, the card
+    detected); every process it started is stopped before it returns."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4)
+    try:
+        return phase_dag(card, rt), phase_workflow(card, rt)
+    finally:
+        stop_runtime(rt)
+
+
 def _trainer_ranks_loop(config):
     """The loop of ``--ranks``' trainer: every worker on its leased card, one
     NCCL group over them (brought up by ``TorchTrainer``); GPT-2-124M bf16
@@ -3708,6 +4106,156 @@ def runtime_ranks(world: int):
     return {"gpus": gpus, "pairs": [s["visible"] for s in seen]}
 
 
+def _padded_learner_classes(world: int):
+    """(TorchLearner, DQNLearner) subclasses on one device that pad every
+    minibatch to a multiple of ``world`` as a ``world``-rank dp learner does
+    and keep every row: the one-card reference of :func:`learner_ranks`."""
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.core.learner import DataParallel, TorchLearner
+
+    class PadTo(DataParallel):
+        def __init__(self):
+            super().__init__(None, torch.device("cpu"))
+
+        def pad(self, t, axis: int = 0):
+            pad = (-t.shape[axis]) % world
+            if not pad:
+                return t
+            shape = list(t.shape)
+            shape[axis] = pad
+            last = t.narrow(axis, t.shape[axis] - 1, 1)
+            return torch.cat([t, last.expand(*shape)], dim=axis)
+
+    class PaddedTorchLearner(TorchLearner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.dp = PadTo()
+
+    class PaddedDQNLearner(DQNLearner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.dp = PadTo()
+
+    return PaddedTorchLearner, PaddedDQNLearner
+
+
+def _rank_view(rank):
+    """A dp learner rank's card, group and parameters' device."""
+    import os
+
+    import torch.distributed as dist
+
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "backend": dist.get_backend(),
+            "rank": dist.get_rank(), "world": dist.get_world_size(),
+            "device": str(next(rank.learner.module.parameters()).device)}
+
+
+def _tree_digest(tree) -> str:
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = tree[k]
+        h.update(_tree_digest(v).encode() if isinstance(v, dict)
+                 else np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def _tree_leaves(tree):
+    return ([x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+            if isinstance(tree, dict) else [np.asarray(tree, np.float64)])
+
+
+def learner_ranks(card: str, world: int):
+    """``--ranks N``: a LearnerGroup of N dp learner ranks (one card each,
+    NCCL) against a one-card learner (mesh_devices=1) padding to N, on one
+    fixed CartPole-v1 batch: PPO's update_from_batch (odd minibatches) and
+    DQN's update, aux within RL_REL_TOL relative, parameters within
+    RL_REL_TOL relative or 2·lr (under 1% of them), the ranks' parameters
+    bitwise equal; each update's ms (the group's call from the driver,
+    warm) on one card and on N."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.algorithms import dqn
+    from ray_tpu_torch.rllib.core.learner import LearnerGroup, TorchLearner
+    from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+
+    padded_ppo, padded_dqn = _padded_learner_classes(world)
+    w0 = TorchLearner(4, 2, device="cpu").get_weights()
+    batch = SingleAgentEnvRunner("CartPole-v1", 8, gamma=0.99, lambda_=0.95,
+                                 seed=0).sample(w0, 64)
+    batch.pop("episode_returns")
+    q0 = dqn.DQNLearner(4, 2, device="cpu").get_weights()
+    q_batch = dqn.DQNEnvRunner("CartPole-v1", 8, seed=1).sample(q0, 32, 1.0)
+    q_batch.pop("episode_returns")
+    q_batch = {k: v[:RL_DP_DQN_ROWS] for k, v in q_batch.items()}
+    cases = (("ppo", 1e-3, TorchLearner, padded_ppo, w0,
+              lambda g: g.update_from_batch(batch, **RL_DP_PPO)),
+             ("dqn", 1e-3, dqn.DQNLearner, padded_dqn, q0, lambda g: g.call("update", q_batch)))
+    out = {"batch_rows": len(batch["obs"]), "dqn_rows": RL_DP_DQN_ROWS, "ppo": RL_DP_PPO}
+    rt.init(num_cpus=world + 2)
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0)
+        if gpus != world:
+            raise AssertionError(f"the runtime sees {gpus} GPUs, not {world}")
+        for name, lr, cls, padded, weights, update in cases:
+            runs = {}
+            for d, learner_cls in ((1, padded), (world, cls)):
+                t0 = time.perf_counter()
+                group = LearnerGroup(4, 2, config={"mesh_devices": d, "num_gpus_per_learner": 1,
+                                                   "lr": lr}, learner_cls=learner_cls)
+                start_s = time.perf_counter() - t0
+                try:
+                    ms = []
+                    for _ in range(2):   # the first pays the ranks' first launches
+                        group.set_weights(weights)
+                        t0 = time.perf_counter()
+                        aux = update(group)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    ranks = group._ranks or [group._actor]
+                    params = rt.get([r.call.remote("get_weights") if group._ranks
+                                     else r.get_weights.remote() for r in ranks], timeout=120)
+                    views = (rt.get([r.__ray_call__.remote(_rank_view) for r in group._ranks],
+                                    timeout=60) if group._ranks else [])
+                finally:
+                    group.shutdown()
+                runs[d] = {"aux": aux, "params": params[0], "first_ms": ms[0], "ms": ms[1],
+                           "start_s": start_s, "views": views,
+                           "ranks_bitwise": len({_tree_digest(p) for p in params}) == 1}
+            one, many = runs[1], runs[world]
+            aux_err = max(abs(many["aux"][k] - one["aux"][k]) / max(abs(one["aux"][k]),
+                                                                    RL_ABS_FLOOR / RL_REL_TOL)
+                          for k in one["aux"])
+            leaves = list(zip(_tree_leaves(many["params"]), _tree_leaves(one["params"])))
+            p_err = max(float(np.abs(a - b).max()) for a, b in leaves)
+            outliers = sum(int((np.abs(a - b) > RL_REL_TOL * np.abs(b) + RL_ABS_FLOOR).sum())
+                           for a, b in leaves)
+            size = sum(b.size for _, b in leaves)
+            views = many["views"]
+            res = {"one_card_ms": one["ms"], "ranks_ms": many["ms"],
+                   "one_card_first_ms": one["first_ms"], "ranks_first_ms": many["first_ms"],
+                   "one_card_start_s": one["start_s"], "ranks_start_s": many["start_s"],
+                   "aux": many["aux"], "aux_max_rel_err": aux_err, "param_max_abs_err": p_err,
+                   "param_outliers": outliers, "params": size, "lr": lr,
+                   "ranks_bitwise": many["ranks_bitwise"], "rank_views": views}
+            log(f"[ranks] LearnerGroup {name} at mesh_devices={world} (ranks: "
+                f"{[(v['rank'], v['visible'], v['backend'], v['device']) for v in views]}, "
+                f"started in {many['start_s']:.2f} s) against one card padding to {world}: "
+                f"aux largest relative difference {aux_err:.3g} (limit {RL_REL_TOL}), "
+                f"parameters largest difference {p_err:.3g} (limit 2·lr {2 * lr:g}), "
+                f"{outliers} of {size} beyond {RL_REL_TOL} relative, ranks bitwise equal "
+                f"{many['ranks_bitwise']}; the update {one['ms']:.2f} ms on one card, "
+                f"{many['ms']:.2f} ms on {world} (first {one['first_ms']:.2f} / "
+                f"{many['first_ms']:.2f} ms) on {card}")
+            if (aux_err > RL_REL_TOL or p_err > 2 * lr + 1e-6 or outliers > 0.01 * size
+                    or not many["ranks_bitwise"] or len(views) != world
+                    or sorted(v["rank"] for v in views) != list(range(world))
+                    or len({v["visible"] for v in views}) != world
+                    or any(v["backend"] != "nccl" or v["device"] != "cuda:0" for v in views)):
+                raise AssertionError(f"the dp learner ({name}): {res}")
+            out[name] = res
+    finally:
+        stop_runtime(rt)
+    return out
+
+
 def phase_ranks(card: str, world: int, pipe_ref):
     """This rank's part of ``--ranks``: the one-device GPT-2-124M step on
     its card, then GPT-2-124M on each mesh of RANKS_TRAIN_MESHES, then the
@@ -3895,6 +4443,7 @@ def main_ranks(world: int) -> int:
     got[0]["pipeline_one_card"] = {k: v for k, v in pipe_ref.items() if k != "path"}
     dp = got[0]["meshes"][json.dumps({"dp": world})]
     got[0]["trainer"] = trainer_ranks(card, world, dp, got[0]["all_reduce_bus_gb_s"])
+    got[0]["learner"] = learner_ranks(card, world)
     got[0]["runtime"] = runtime_ranks(world)
     got[0]["serve"] = serve_ranks(world)
     log(f"[ranks] {json.dumps(got[0])}")
@@ -3938,6 +4487,7 @@ def main() -> int:
     data = phase_data(card, train)
     rllib = phase_rllib(card)
     multinode = phase_multinode(card, serve, runtime)
+    dag, wf = phase_graphs(card)
     del llama_cpu
     spec.pop("same_seed_outputs")
     for key in ("prompts", "outputs", "cpu_model"):
@@ -3963,7 +4513,9 @@ def main() -> int:
                    "trainer": trainer["plain_calls"],
                    "data": data["plain_calls"],
                    "multinode_pool": multinode["pool_plain_calls"],
-                   "multinode_grads": multinode["grads_plain_calls"]}
+                   "multinode_grads": multinode["grads_plain_calls"],
+                   "dag_stage_a": dag["plain_calls_a"], "dag_stage_b": dag["plain_calls_b"],
+                   "workflow": wf["plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -3988,7 +4540,10 @@ def main() -> int:
                              "trainer": trainer["launches"][0],
                              "data": data["launches"][0],
                              "multinode_pool": multinode["pool_launches"],
-                             "multinode_grads": multinode["grads_launches"][0]},
+                             "multinode_grads": multinode["grads_launches"][0],
+                             "dag_stage_a": dag["launches_a"],
+                             "dag_stage_b": dag["launches_b"],
+                             "workflow": wf["launches"]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -4069,6 +4624,8 @@ def main() -> int:
     log(f"[data] {json.dumps(data)}")
     log(f"[rllib] {json.dumps(rllib)}")
     log(f"[multinode] {json.dumps(multinode)}")
+    log(f"[dag] {json.dumps(dag)}")
+    log(f"[workflow] {json.dumps(wf)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

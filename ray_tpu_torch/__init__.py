@@ -12,8 +12,9 @@ What is ported so far (the serving and training slices, every model
 family of the JAX zoo, speculative decoding, the metrics and the flight
 recorder, the training step on a mesh of dp, fsdp, tp, sp, ep and pp, the
 runtime's core, the serve deployment on it, the trainer with Tune and
-placement groups, data, RLlib, and several nodes on one machine with the
-rest of ``util``):
+placement groups, data, RLlib with its dp learner over several cards,
+several nodes on one machine with the rest of ``util``, and compiled
+graphs with workflows):
 
   api.py, actor.py,      init / remote / get / put / wait / kill / shutdown,
   remote_function.py,    actors and tasks with ``num_gpus`` (copies of the
@@ -94,7 +95,8 @@ rest of ``util``):
   rllib/                 RL: CPU env-runner actors (numpy copies of the
                          policy and of CartPole-v1 / Pendulum-v1) feeding
                          learners on leased cards: PPO, IMPALA, APPO, DQN,
-                         SAC, multi-agent PPO, BC, MARWIL, offline data
+                         SAC, multi-agent PPO, BC, MARWIL, offline data;
+                         a dp learner of one process per card (NCCL)
   cluster_utils.py       Cluster: several raylets on one machine under one
                          GCS, each with the resources it is given (copies)
   util/                  broadcast_object (tree fan-out of raylet pushes),
@@ -104,13 +106,20 @@ rest of ``util``):
                          collective: the host plane's TCP ring, with torch
                          tensors on any device (NCCL stays
                          torch.distributed's, in parallel/)
+  dag/                   .bind() nodes, eager execute, CompiledDAG: actor
+                         exec loops (on the actor's card) over channels
+  experimental/channel.py  shared-memory channels mutated in place in
+                         plasma, socket channels between nodes (copies);
+                         a CUDA tensor crosses as its host copy
+  workflow/              durable DAG execution with resume, virtual actors
+                         (copies, the JAX storage layout)
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back. This
 module and the runtime's control plane (the GCS, the raylet, the fork
 server) never import torch: a worker first touches CUDA after its lease's
-``CUDA_VISIBLE_DEVICES`` is set; importing ``train``, ``tune``, ``data`` or
-``rllib`` loads no torch either, so a trainer's trial actor and an RL env
+``CUDA_VISIBLE_DEVICES`` is set; importing ``train``, ``tune``, ``data``,
+``rllib``, ``dag``, ``experimental`` or ``workflow`` loads no torch either, so a trainer's trial actor and an RL env
 runner never load it.
 
 Attribute access is lazy (PEP 562), as in ``ray_tpu``: control-plane
@@ -171,7 +180,8 @@ def __getattr__(name):
         import ray_tpu_torch.cluster_utils as _cu
 
         return _cu
-    if name in ("train", "tune", "serve", "data", "rllib"):
+    if name in ("train", "tune", "serve", "data", "rllib", "workflow", "dag",
+                "experimental"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

@@ -47,9 +47,11 @@ class ActorMethod:
     def bind(self, *args, **kwargs):
         """Build a DAG node calling this method on the live actor
         (reference: actor.py ActorMethod.bind for dag/compiled use)."""
-        raise NotImplementedError(
-            "bind() builds a DAG node; ray_tpu_torch has no dag/ yet (ROADMAP "
-            "item 11c)")
+        from ray_tpu_torch.dag.node import ClassMethodNode, _LiveActorNode
+
+        return ClassMethodNode(
+            _LiveActorNode(self._handle), self._method_name, args, kwargs
+        )
 
     def remote(self, *args, **kwargs):
         worker = get_global_worker()
@@ -171,9 +173,9 @@ class ActorClass:
         )
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(
-            "bind() builds a DAG node; ray_tpu_torch has no dag/ yet (ROADMAP "
-            "item 11c)")
+        from ray_tpu_torch.dag.node import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
 
 def method(num_returns: int = 1):

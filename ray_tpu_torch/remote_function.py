@@ -91,6 +91,6 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """DAG-building entrypoint (reference: python/ray/dag)."""
-        raise NotImplementedError(
-            "bind() builds a DAG node; ray_tpu_torch has no dag/ yet (ROADMAP "
-            "item 11c)")
+        from ray_tpu_torch.dag.node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)

@@ -6,7 +6,9 @@ new-stack slice: EnvRunnerGroup, LearnerGroup, PPO and the algorithms
 beside it). Env runners are CPU actors stepping numpy environments with a
 numpy copy of the policy, and never import torch; each learner holds its
 module and optimizer on one device, a card leased with
-``num_gpus_per_learner`` (default 1) or the CPU at 0. Importing this
+``num_gpus_per_learner`` (default 1) or the CPU at 0; a ``LearnerGroup``
+with ``mesh_devices`` d > 1 is d such learners, one process per card,
+all-reducing their gradients over NCCL. Importing this
 package loads no torch: a learner imports it when it is built.
 """
 

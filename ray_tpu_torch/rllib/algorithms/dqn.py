@@ -18,13 +18,12 @@ import numpy as np
 import ray_tpu_torch
 from ray_tpu_torch.rllib.core._numpy_policy import numpy_q_forward
 from ray_tpu_torch.rllib.core.learner import (
+    DataParallel,
     adam,
     check_learner_device,
-    check_mesh_devices,
     host_floats,
     learner_device,
     optimizer_step,
-    pad_rows,
     to_device,
 )
 from ray_tpu_torch.rllib.env._classic_control import make_vec
@@ -128,7 +127,8 @@ class DQNEnvRunner:
 
 class DQNLearner:
     """Double-DQN update on one device (the card unless built with
-    ``device="cpu"``)."""
+    ``device="cpu"``), or on one rank of a dp learner (``mesh_devices`` > 1:
+    the batch padded as the JAX learner pads it, this rank's rows)."""
 
     def __init__(self, obs_dim: int, num_actions: int, *, lr: float = 1e-3,
                  gamma: float = 0.99, hidden=(64, 64), seed: int = 0,
@@ -138,8 +138,8 @@ class DQNLearner:
         from ray_tpu_torch._private.device import resolve_device
         from ray_tpu_torch.rllib.core.rl_module import QModule
 
-        check_mesh_devices(mesh_devices)
         self.device = resolve_device(device)
+        self.dp = DataParallel(mesh_devices, self.device)
         self.module = QModule(obs_dim, num_actions, hidden, seed=seed).to(self.device)
         self.target = copy.deepcopy(self.module).requires_grad_(False)
         self.lr, self.gamma = lr, gamma
@@ -158,13 +158,13 @@ class DQNLearner:
             target = batch["rewards"] + self.gamma * (1.0 - batch["dones"]) * q_best
         td = q_sa - target
         # huber
-        loss = torch.mean(torch.where(torch.abs(td) < 1.0, 0.5 * td * td,
-                                      torch.abs(td) - 0.5))
-        return loss, {"td_error_mean": torch.mean(torch.abs(td))}
+        loss = self.dp.mean(torch.where(torch.abs(td) < 1.0, 0.5 * td * td,
+                                        torch.abs(td) - 0.5))
+        return loss, {"td_error_mean": self.dp.mean(torch.abs(td))}
 
     def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        dev = pad_rows(to_device(batch, self.device), self.num_devices())
-        return host_floats(optimizer_step(self.opt, *self._loss(dev)))
+        dev = self.dp.rows(to_device(batch, self.device))
+        return host_floats(optimizer_step(self.opt, *self._loss(dev), self.dp))
 
     def sync_target(self):
         self.target.load_state_dict(self.module.state_dict())
@@ -189,7 +189,7 @@ class DQNLearner:
         return flax_params(self.target)
 
     def num_devices(self) -> int:
-        return 1
+        return self.dp.size
 
 
 class DQNConfig:

@@ -22,12 +22,11 @@ from ray_tpu_torch.rllib.core._numpy_policy import (
     sample_squashed_actions,
 )
 from ray_tpu_torch.rllib.core.learner import (
+    DataParallel,
     adam,
     check_learner_device,
-    check_mesh_devices,
     host_floats,
     learner_device,
-    pad_rows,
     to_device,
 )
 from ray_tpu_torch.rllib.env._classic_control import make_vec
@@ -150,8 +149,12 @@ class SACLearner:
     tanh log-det correction keeps the entropy term exact
     (reference: sac_torch_learner.compute_loss_for_module). The noise of
     each update's two reparameterized samples is drawn on the host from a
-    ``torch.Generator`` seeded with ``seed + 2``; :meth:`update_with_noise`
-    takes it from the caller."""
+    ``torch.Generator`` seeded with ``seed + 2``, for the whole batch padded
+    to the rank count (as the JAX learner draws its noise for the padded
+    batch); :meth:`update_with_noise` takes it from the caller. Under dp
+    (``mesh_devices`` > 1) every rank draws the same noise and keeps its
+    rows; the critic, actor and temperature gradients are summed over the
+    ranks before each of their steps."""
 
     def __init__(self, obs_dim: int, action_dim: int, low, high, *,
                  actor_lr: float = 3e-4, critic_lr: float = 3e-4,
@@ -169,8 +172,8 @@ class SACLearner:
             TwinQModule,
         )
 
-        check_mesh_devices(mesh_devices)
         self.device = dev = resolve_device(device)
+        self.dp = DataParallel(mesh_devices, dev)
         self.action_dim = action_dim
         self.actor = SquashedGaussianModule(obs_dim, action_dim, hidden,
                                             seed=seed).to(dev)
@@ -213,11 +216,17 @@ class SACLearner:
         """One update: the critics on the soft target from the next obs
         (actor noise ``noise_next``), then the actor under the fresh critics
         (``noise``), then the temperature, then the polyak target; both
-        noise arrays are (rows, action_dim)."""
+        noise arrays are (rows, action_dim), of the batch's rows or of its
+        rows padded to the rank count."""
         import torch
 
-        b = pad_rows(to_device({**batch, "noise_next": noise_next, "noise": noise},
-                               self.device), self.num_devices())
+        dp = self.dp
+        b = {k: dp.pad(v) for k, v in to_device(batch, self.device).items()}
+        rows = len(b["obs"])
+        for k, v in to_device({"noise_next": noise_next, "noise": noise},
+                              self.device).items():
+            b[k] = v if len(v) == rows else dp.pad(v)
+        b = {k: dp.shard(v) for k, v in b.items()}
         alpha = torch.exp(self.log_alpha.detach())
 
         # --- critic: clipped double-Q soft target
@@ -227,25 +236,32 @@ class SACLearner:
             target_q = b["rewards"] + self.gamma * (1.0 - b["dones"]) * (
                 torch.minimum(tq1, tq2) - alpha * next_logp)
         q1, q2 = self.critic(b["obs"], b["actions"])
-        critic_loss = torch.mean((q1 - target_q) ** 2 + (q2 - target_q) ** 2)
+        critic_loss = dp.mean((q1 - target_q) ** 2 + (q2 - target_q) ** 2)
         self.critic_opt.zero_grad(set_to_none=True)
         critic_loss.backward()
+        critic_loss = critic_loss.detach().clone()
+        dp.all_sum([p.grad for p in self.critic.parameters()] + [critic_loss])
         self.critic_opt.step()
 
         # --- actor: maximize soft value under the fresh critics
         a, logp = self._sample_action(b["obs"], b["noise"])
         q1, q2 = self.critic(b["obs"], a)
-        actor_loss = torch.mean(alpha * logp - torch.minimum(q1, q2))
+        actor_loss = dp.mean(alpha * logp - torch.minimum(q1, q2))
         actor_params = list(self.actor.parameters())
         grads = torch.autograd.grad(actor_loss, actor_params)
         for p, g in zip(actor_params, grads):
             p.grad = g
-        self.actor_opt.step()
 
-        # --- temperature: drive entropy toward the target
-        alpha_loss = -torch.mean(self.log_alpha * (logp.detach() + self.target_entropy))
+        # --- temperature: drive entropy toward the target (its loss reads
+        # the actor's samples, not its parameters: stepping the actor first
+        # or after changes nothing)
+        alpha_loss = -dp.mean(self.log_alpha * (logp.detach() + self.target_entropy))
         self.alpha_opt.zero_grad(set_to_none=True)
         alpha_loss.backward()
+        values = torch.stack([actor_loss.detach(), alpha_loss.detach(),
+                              -dp.mean(logp.detach())])
+        dp.all_sum(list(grads) + [self.log_alpha.grad, values])
+        self.actor_opt.step()
         self.alpha_opt.step()
 
         # --- polyak target sync, every step (tau-weighted)
@@ -253,17 +269,19 @@ class SACLearner:
             for t, o in zip(self.target.parameters(), self.critic.parameters()):
                 t.mul_(1.0 - self.tau).add_(self.tau * o)
         return host_floats({
-            "critic_loss": critic_loss.detach(),
-            "actor_loss": actor_loss.detach(),
-            "alpha_loss": alpha_loss.detach(),
+            "critic_loss": critic_loss,
+            "actor_loss": values[0],
+            "alpha_loss": values[1],
             "alpha": alpha,
-            "entropy": -torch.mean(logp.detach()),
+            "entropy": values[2],
         })
 
     def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         import torch
 
-        shape = (2, len(batch["obs"]), self.action_dim)
+        rows = len(batch["obs"])
+        rows += (-rows) % self.dp.size
+        shape = (2, rows, self.action_dim)
         noise = torch.randn(shape, generator=self._gen).numpy()
         return self.update_with_noise(batch, noise[0], noise[1])
 
@@ -273,7 +291,7 @@ class SACLearner:
         return flax_params(self.actor)
 
     def num_devices(self) -> int:
-        return 1
+        return self.dp.size
 
 
 class SACConfig:

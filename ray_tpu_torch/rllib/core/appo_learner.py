@@ -71,8 +71,7 @@ class AppoLearner(ImpalaLearner):
         surr1 = pg_adv * logp_ratio
         surr2 = pg_adv * torch.clamp(
             logp_ratio, 1.0 - self.clip_param, 1.0 + self.clip_param)
-        w = batch["valid"]
-        wsum = torch.clamp(torch.sum(w), min=1.0)
+        w, wsum = batch["valid"], batch["wsum"]
         pi_loss = -torch.sum(w * torch.minimum(surr1, surr2)) / wsum
         # The value function trains on the v-trace targets with the CURRENT
         # params (the target net only supplies the targets).
@@ -86,7 +85,7 @@ class AppoLearner(ImpalaLearner):
         if self.use_kl_loss:
             total = total + self.kl_coeff * kl
         return total, {"pi_loss": pi_loss, "vf_loss": vf_loss,
-                       "entropy": entropy, "kl": kl, "mean_rho": torch.mean(rho)}
+                       "entropy": entropy, "kl": kl, "mean_rho": self.dp.mean(rho)}
 
     def update_from_trajectories(
         self, batch: Dict[str, np.ndarray]

@@ -5,7 +5,11 @@ Reference: rllib/algorithms/impala/ (decoupled env runners stream
 trajectories to a continuously-updating learner; staleness is corrected
 with V-trace importance weighting, Espeholt et al. 2018). One update is the
 forward over the (T, N) sequence batch, v-trace as a reverse loop over T on
-the device, the gradients and one Adam step, on the learner's device.
+the device, the gradients and one Adam step, on the learner's device. A dp
+learner (``mesh_devices`` > 1, one rank per card) pads the env axis as the
+JAX learner does and gives each rank its 1/d of the envs: v-trace runs
+along T within an env, so the shards are independent, and the weighted
+means divide by the whole padded batch's weight on every rank.
 Importing this module loads no torch.
 """
 
@@ -16,8 +20,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from ray_tpu_torch.rllib.core.learner import (
+    DataParallel,
     adam,
-    check_mesh_devices,
     host_floats,
     optimizer_step,
     to_device,
@@ -45,22 +49,22 @@ def vtrace(rho, rewards, discounts, values, bootstrap_v, c):
     return vs, pg_adv
 
 
-def shard_time_major(batch: Dict[str, np.ndarray], num_devices: int, device):
+def shard_time_major(batch: Dict[str, np.ndarray], dp: DataParallel, device):
     """A time-major (T, N) trajectory batch on ``device``, its env axis padded
-    to a multiple of ``num_devices`` by repeating the last env, as the JAX
-    learner pads it to its mesh (bootstrap_obs is (N, obs))."""
-    n = batch["actions"].shape[1]
-    pad = (-n) % num_devices
-    if pad:
-        def pad_k(k, v):
-            if k == "bootstrap_obs":  # (N, obs): env axis is 0
-                return np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-            return np.concatenate(  # (T, N, ...): env axis is 1
-                [v, np.repeat(v[:, -1:], pad, axis=1)], axis=1
-            )
+    to a multiple of the rank count by repeating the last env, as the JAX
+    learner pads it to its mesh (bootstrap_obs is (N, obs)), and this rank's
+    shard of the envs; with the whole padded batch's weight ``wsum``
+    (``valid`` summed, at least 1), which every rank's weighted means
+    divide by."""
+    import torch
 
-        batch = {k: pad_k(k, v) for k, v in batch.items()}
-    return to_device(batch, device)
+    dev = to_device(batch, device)
+    # env axis: 0 of bootstrap_obs (N, obs), 1 of every (T, N, ...) array
+    dev = {k: dp.pad(v, 0 if k == "bootstrap_obs" else 1) for k, v in dev.items()}
+    wsum = torch.clamp(torch.sum(dev["valid"]), min=1.0)
+    dev = {k: dp.shard(v, 0 if k == "bootstrap_obs" else 1) for k, v in dev.items()}
+    dev["wsum"] = wsum
+    return dev
 
 
 def time_major_forward(module, batch):
@@ -89,8 +93,8 @@ class ImpalaLearner:
         from ray_tpu_torch._private.device import resolve_device
         from ray_tpu_torch.rllib.core.rl_module import ActorCriticModule
 
-        check_mesh_devices(mesh_devices)
         self.device = resolve_device(device)
+        self.dp = DataParallel(mesh_devices, self.device)
         self.module = ActorCriticModule(obs_dim, num_actions, hidden, seed=seed).to(self.device)
         self.lr = lr
         self.opt = adam(self.module.parameters(), lr, self.device)
@@ -110,23 +114,22 @@ class ImpalaLearner:
             vs, pg_adv = vtrace(rho, batch["rewards"], discounts, values,
                                 boot_v, c)
         # autoreset rows (action ignored by the env) carry zero weight
-        w = batch["valid"]
-        wsum = torch.clamp(torch.sum(w), min=1.0)
+        w, wsum = batch["valid"], batch["wsum"]
         pi_loss = -torch.sum(w * target_logp * pg_adv) / wsum
         vf_loss = 0.5 * torch.sum(w * (values - vs) ** 2) / wsum
         entropy = -torch.sum(
             w * torch.sum(torch.exp(logp_all) * logp_all, dim=-1)) / wsum
         total = pi_loss + self.vf_coeff * vf_loss - self.entropy_coeff * entropy
         return total, {"pi_loss": pi_loss, "vf_loss": vf_loss,
-                       "entropy": entropy, "mean_rho": torch.mean(rho)}
+                       "entropy": entropy, "mean_rho": self.dp.mean(rho)}
 
     def update_from_trajectories(
         self, batch: Dict[str, np.ndarray]
     ) -> Dict[str, float]:
         """One v-trace gradient step on a time-major (T, N) batch."""
         batch = {k: v for k, v in batch.items() if k != "episode_returns"}
-        dev = shard_time_major(batch, self.num_devices(), self.device)
-        return host_floats(optimizer_step(self.opt, *self._loss(dev)))
+        dev = shard_time_major(batch, self.dp, self.device)
+        return host_floats(optimizer_step(self.opt, *self._loss(dev), self.dp))
 
     def get_weights(self):
         from ray_tpu_torch.rllib.core.rl_module import flax_params
@@ -141,4 +144,4 @@ class ImpalaLearner:
         return True
 
     def num_devices(self) -> int:
-        return 1
+        return self.dp.size

@@ -288,8 +288,8 @@ _BANNED = ("jax", "jaxlib", "flax", "ray_tpu")
 def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     """Every module of the port (the runtime's too: the GCS, the raylet,
     the workers, the dashboard agent; the trainer, Tune and placement
-    groups; the data package; RLlib; the Cluster and the rest of util)
-    imports without JAX and without side
+    groups; the data package; RLlib; the Cluster and the rest of util; the
+    compiled graphs, their channels and workflows) imports without JAX and without side
     effects: no thread, no child process, no signal handler."""
     code = (
         "import importlib, multiprocessing, pkgutil, signal, sys, threading\n"
@@ -322,8 +322,12 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
         "        'ray_tpu_torch.util.queue', 'ray_tpu_torch.util.multiprocessing',\n"
         "        'ray_tpu_torch.util.collective', 'ray_tpu_torch.util.check_serialize',\n"
         "        'ray_tpu_torch.util.client', 'ray_tpu_torch.util.client.common',\n"
-        "        'ray_tpu_torch.util.client.server', 'ray_tpu_torch.util.loadgen'} <= set(names)\n"
+        "        'ray_tpu_torch.util.client.server', 'ray_tpu_torch.util.loadgen',\n"
+        "        'ray_tpu_torch.dag', 'ray_tpu_torch.dag.node', 'ray_tpu_torch.dag.compiled',\n"
+        "        'ray_tpu_torch.experimental', 'ray_tpu_torch.experimental.channel',\n"
+        "        'ray_tpu_torch.workflow', 'ray_tpu_torch.workflow.virtual_actor'} <= set(names)\n"
         "ray_tpu_torch.tune, ray_tpu_torch.cluster_utils, ray_tpu_torch.util.ActorPool\n"
+        "ray_tpu_torch.dag, ray_tpu_torch.workflow, ray_tpu_torch.experimental\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not multiprocessing.active_children()\n"
         "assert handlers == {s: signal.getsignal(s) for s in handlers}\n"

@@ -133,7 +133,9 @@ def test_load_rejects_a_foreign_tree():
 
 
 def test_learner_is_one_device():
-    with pytest.raises(ValueError, match="10b"):
+    # eight devices are a dp learner of eight ranks: outside such a
+    # torch.distributed group the learner raises, never one device instead
+    with pytest.raises(RuntimeError, match="group of 8 ranks"):
         TorchLearner(4, 2, mesh_devices=8, device="cpu")
     assert TorchLearner(4, 2, mesh_devices=1, device="cpu").num_devices() == 1
     if not torch.cuda.is_available():

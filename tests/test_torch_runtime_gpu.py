@@ -216,6 +216,11 @@ def test_control_plane_imports_leave_torch_out_in_a_fresh_interpreter():
         "from ray_tpu_torch.util import (actor_pool, broadcast, check_serialize, client,\n"
         "                                collective, loadgen, multiprocessing, queue, state)\n"
         "from ray_tpu_torch.util.client import server\n"
+        "from ray_tpu_torch import dag, experimental, workflow  # the graph half of 11c\n"
+        "from ray_tpu_torch.dag import compiled, node\n"
+        "from ray_tpu_torch.experimental import channel\n"
+        "from ray_tpu_torch.workflow import virtual_actor\n"
+        "ray_tpu_torch.remote(lambda: 1).bind(), ray_tpu_torch.dag.InputNode()  # nodes\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -11,7 +11,9 @@
     then the driver's files and ``nvidia-smi``, never importing torch (in a
     fresh interpreter); lease ids mapped through the node's own
     ``CUDA_VISIBLE_DEVICES``;
-  - ``.bind()`` raises ``NotImplementedError`` until ``dag/`` is ported.
+  - ``.bind()`` builds the port's DAG nodes (``ray_tpu_torch.dag``) on
+    functions, actor classes and actor methods, and their eager
+    ``execute()`` gives the values ``.remote()`` gives.
 """
 
 import os
@@ -30,6 +32,8 @@ from ray_tpu_torch._private import config as tconfig
 from ray_tpu_torch._private import ids as tids
 from ray_tpu_torch._private import task_spec as tts
 from ray_tpu_torch._private.raylet import resources as tres
+
+from _torch_runtime import ray_start_2_cpus  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -228,20 +232,33 @@ def test_detection_reads_the_flag_without_cuda_in_a_fresh_interpreter():
     assert res.stdout.strip() == "{'GPU': 3.0} False"
 
 
-def test_bind_raises_until_the_dag_is_ported():
-    """``.bind()`` builds a DAG node in ``ray_tpu``; the port has no
-    ``dag/`` yet and says so, without reaching for ``ray_tpu.dag``."""
+def test_bind_raises_until_the_dag_is_ported(ray_start_2_cpus):
+    """``.bind()`` builds a DAG node in ``ray_tpu``, and now in the port:
+    a ``FunctionNode``, a ``ClassNode`` and a ``ClassMethodNode`` of
+    ``ray_tpu_torch.dag``, whose eager ``execute()`` runs the task, creates
+    the actor and calls its method."""
     import ray_tpu_torch
-    from ray_tpu_torch.actor import ActorMethod
+    from ray_tpu_torch.dag import ClassNode, FunctionNode
+    from ray_tpu_torch.dag.node import ClassMethodNode
 
-    def f():
-        return 1
+    def f(x):
+        return x + 1
 
     class A:
-        def m(self):
-            return 1
+        def __init__(self, k):
+            self.k = k
 
-    for bind in (ray_tpu_torch.remote(f).bind, ray_tpu_torch.remote(A).bind,
-                 ActorMethod(None, "m").bind):
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            bind()
+        def m(self, x):
+            return x * self.k
+
+    fn = ray_tpu_torch.remote(f).bind(1)
+    assert type(fn) is FunctionNode
+    assert ray_tpu_torch.get(fn.execute(), timeout=60) == 2
+    cls = ray_tpu_torch.remote(A).bind(3)
+    assert type(cls) is ClassNode
+    handle = cls.execute()
+    assert isinstance(handle, ray_tpu_torch.ActorHandle)
+    for meth in (handle.m.bind(5), cls.m.bind(5)):
+        assert type(meth) is ClassMethodNode
+        assert ray_tpu_torch.get(meth.execute(), timeout=60) == 15
+    assert cls.execute() is handle  # one actor per ClassNode

@@ -3,7 +3,7 @@ tests/test_serve.py (deployments, replicas, pow-2 routing, the HTTP proxy,
 composition, recovery, batching, redeploy, autoscaling, request metrics and
 the error counter), run on ``ray_tpu_torch.init(num_cpus=8)``.
 
-The port has no dashboard head (ROADMAP item 11c), so the metrics test reads
+The port has no dashboard head (ROADMAP item 11d), so the metrics test reads
 the ``/api/serve`` summary through the JAX package's ``DashboardHead`` over the
 port's GCS client: the same records, the same aggregation.
 
