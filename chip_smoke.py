@@ -261,12 +261,31 @@ script exits non-zero:
              step ids and meta keys, the output equal to a fresh run's, the
              CUDA tensor back from resume and from storage as a CPU tensor.
              Every process the runtime started is stopped
+ 23. operator  the operator plane through the CLI, as an operator runs
+             it: `ray-tpu-torch start --head --resources '{"CPU": 4, "GPU":
+             0}' --dashboard-port 0` (status, /api/cluster, /api/version);
+             an Autoscaler over a FakeMultiNodeProvider with one node type
+             {"CPU": 2, "GPU": 1} (max_workers 1); a job submitted over HTTP
+             (JobSubmissionClient) whose entrypoint calls init(address=
+             "auto") and leases a num_gpus=1 actor, the demand that makes
+             the autoscaler launch the card's node; the actor serves phase
+             6's prompts with GPT-2-124M (seed-0 weights) through LLMEngine.
+             Checks: the job SUCCEEDED, its logs over /api/jobs/<id>/logs
+             show forward launches > 0 and 0 plain calls and every greedy
+             token within 1e-3 of the max logit of the card's plain forward;
+             the node in /api/nodes, then gone once idle; a second job
+             STOPPED by `job stop`; `perf check --only` writing a ledger in
+             a temporary directory that `perf history` and /api/perf read
+             back; `stop` leaving no process and no plasma segment. Prints
+             start to head ready, submit to SUCCEEDED, the job's tokens/s
+             beside phase 6's, demand to node up, idle to node gone and the
+             perf check's seconds
 
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
 train, MoE on the mesh, the pipeline, the runtime's actor and task, the
 two deployments, the trainer, the trainer fed by a Dataset, the multinode
-pool and gradients, the two DAG stages and the workflow step; every
+pool and gradients, the two DAG stages, the workflow step and the operator's job; every
 full-width path must show 0 plain calls) and, last,
 ``{"ok": true, "device": ...}``.
 
@@ -323,6 +342,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import os
 import re
 import socket
 import statistics
@@ -456,6 +476,13 @@ DAG_IN_FLIGHT = 4             # executes before the first get (depth-1 channels 
 DAG_BUFFER = 16 << 20         # a channel's bytes: the (4, 512, 768) bf16 hidden state is 3 MiB
 RL_DP_PPO = dict(num_epochs=2, minibatch_size=127, seed=0)   # odd: each minibatch padded
 RL_DP_DQN_ROWS = 254          # DQN rows of the dp check: two rows of pad over four ranks
+# the operator phase: a head started by the CLI without the card, and one
+# node type of one card that the autoscaler launches for the job's actor
+OPERATOR_HEAD_RESOURCES = '{"CPU": 4, "GPU": 0}'
+OPERATOR_NODE = {"CPU": 2.0, "GPU": 1.0}
+OPERATOR_IDLE_S = 5.0         # the autoscaler's idle timeout for that node
+OPERATOR_DEADLINE_S = 600     # a job's time to end; a node's to come or go
+OPERATOR_PERF_ROWS = "single_client_tasks_sync,single_client_put_calls,1_1_actor_calls_sync"
 LLM_SERIES = ("ray_tpu_llm_tokens_per_s", "ray_tpu_llm_kv_utilization",
               "ray_tpu_llm_batch_size", "ray_tpu_llm_preemptions_total",
               "ray_tpu_llm_prefix_hit_rate", "ray_tpu_llm_spec_acceptance")
@@ -906,14 +933,17 @@ def drive_engine(engine, prompts, max_tokens: int):
 
 
 def greedy_gaps(cpu_model, prompts, outputs):
-    """Teacher-forced on the CPU plain forward: per request, how far each
-    generated token's logit lies below the position's max logit."""
+    """Teacher-forced on a plain forward (the CPU's, or the card's einsum
+    path): per request, how far each generated token's logit lies below the
+    position's max logit."""
     gaps = {}
     with torch.inference_mode():
+        dev = next(cpu_model.parameters()).device
         for i, toks in outputs.items():
-            ctx = torch.tensor([prompts[i] + toks])
+            ctx = torch.tensor([prompts[i] + toks], device=dev)
             logits = cpu_model(ctx)[0, len(prompts[i]) - 1:-1].float()
-            chosen = logits[torch.arange(len(toks)), torch.tensor(toks)]
+            chosen = logits[torch.arange(len(toks), device=dev),
+                            torch.tensor(toks, device=dev)]
             gaps[i] = (logits.max(dim=-1).values - chosen).tolist()
     return gaps
 
@@ -3870,6 +3900,344 @@ def phase_graphs(card: str):
         stop_runtime(rt)
 
 
+# ------------------------------------------------------------ the operator plane
+
+OPERATOR_ENTRY = """\
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import ray_tpu_torch as rt
+
+cfg = json.loads(sys.argv[2])
+rt.init(address="auto")
+
+
+@rt.remote(num_gpus=1)
+class OperatorServer:
+    def serve(self):
+        import chip_smoke
+
+        return chip_smoke.operator_serve()
+
+
+print("DEMAND_AT", time.time(), flush=True)
+server = OperatorServer.remote()
+out = rt.get(server.serve.remote(), timeout=cfg["deadline_s"])
+rt.kill(server)
+print("IDLE_AT", time.time(), flush=True)
+print("OPERATOR_RESULT " + json.dumps(out), flush=True)
+print("TORCH_IN_DRIVER", "torch" in sys.modules, flush=True)
+rt.shutdown()
+"""
+
+
+def operator_serve():
+    """The job's actor (on the node the autoscaler launched): GPT-2-124M at
+    full width built as phase 6 builds it, phase 6's prompts through
+    ``LLMEngine``, the forward kernel's launches and plain calls read right
+    after, then every greedy token teacher-forced on the card's plain
+    (einsum) forward of the same weights."""
+    import dataclasses
+
+    from ray_tpu_torch.models.gpt2 import init_params
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.serve.llm.adapters import build_adapter
+
+    t0 = time.perf_counter()
+    adapter = build_adapter("gpt2", seed=0, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    engine = LLMEngine(adapter, name="operator")
+    prompts = serve_prompts(adapter.cfg.vocab_size)
+    reset_counts()
+    outputs, wall = drive_engine(engine, prompts, SERVE_MAX_TOKENS)
+    launches, _, _, plain_calls = read_counts()
+    plain_cfg = dataclasses.replace(adapter.cfg, use_flash_attention=False)
+    plain = init_params(plain_cfg, torch.Generator().manual_seed(0),
+                        device=DEVICE).eval()
+    same = all(torch.equal(a, b) for a, b in zip(plain.state_dict().values(),
+                                                 adapter.model.state_dict().values()))
+    gaps = greedy_gaps(plain, prompts, outputs)
+    cfg_w = adapter.cfg
+    return {"width": [cfg_w.n_layer, cfg_w.n_head, cfg_w.n_embd, cfg_w.vocab_size,
+                      cfg_w.block_size],
+            "launches": launches, "plain_calls": plain_calls,
+            "tokens_per_s": SERVE_MAX_TOKENS * len(prompts) / wall,
+            "build_s": build_s, "weights_equal": same,
+            "worst_gap": max(max(g) for g in gaps.values()),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_name": torch.cuda.get_device_name(0),
+            "torch_in_worker": "torch" in sys.modules}
+
+
+def _cli(args, env, timeout=300):
+    """``python -m ray_tpu_torch.scripts <args>`` as an operator runs it."""
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts", *args],
+                         capture_output=True, text=True, env=env, timeout=timeout,
+                         cwd=str(ROOT))
+    if out.returncode != 0:
+        raise AssertionError(f"ray-tpu-torch {' '.join(args)} exited "
+                             f"{out.returncode}:\n{out.stdout}\n{out.stderr}")
+    return out.stdout
+
+
+def _http_json(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _plasma_segments(node_ids):
+    """The plasma segments of these nodes still in /dev/shm (a raylet names
+    its segment after its node id); another cluster's are not looked at."""
+    names = (f"rtpu_torch_plasma_{node_id[:12]}" for node_id in node_ids)
+    return sorted(name for name in names if (Path("/dev/shm") / name).exists())
+
+
+def _job_lines(logs, key):
+    return [line.split(" ", 1)[1] for line in logs.splitlines()
+            if line.startswith(key + " ")]
+
+
+def phase_operator(card: str, serve):
+    """Phase 23: the operator plane on the card machine, through the CLI. A
+    head started by ``ray-tpu-torch start`` without the card, its status and
+    HTTP routes; an autoscaler over a FakeMultiNodeProvider whose one node
+    type holds the card; a job submitted over HTTP whose actor makes the
+    autoscaler launch that node and serves GPT-2-124M there through the
+    forward kernel; the node removed once idle; a second job stopped with
+    ``job stop``; ``perf check`` writing a ledger that ``perf history`` and
+    ``/api/perf`` read back; ``stop`` leaving none of the phase's processes
+    and none of its nodes' plasma segments."""
+    import shutil
+    import tempfile
+    import threading
+
+    import psutil
+
+    import ray_tpu_torch
+    from ray_tpu_torch.autoscaler import (Autoscaler, FakeMultiNodeProvider,
+                                          NodeTypeConfig)
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    tmp = Path(tempfile.mkdtemp(prefix="operator_"))
+    history = tmp / "perf_history.jsonl"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["RTPU_TORCH_STATE_FILE"] = str(tmp / "cli_cluster.json")   # this phase's cluster
+    env["RTPU_TORCH_perf_history_path"] = str(history)             # the head's /api/perf
+    node_ids = set()   # the phase's own nodes: the head and the launched one
+    res = {}
+    provider = scaler = url = None
+    stopped = False
+    try:
+        # ---- 1. the head, as an operator starts it
+        t0 = time.perf_counter()
+        out = _cli(["start", "--head", "--resources", OPERATOR_HEAD_RESOURCES,
+                    "--dashboard-port", "0"], env)
+        gcs = out.split("GCS at ", 1)[1].split()[0]
+        url = out.split("dashboard: ", 1)[1].split()[0]
+        cluster = _http_json(f"{url}/api/cluster")
+        res["head_ready_s"] = time.perf_counter() - t0
+        node_ids |= {n["node_id"] for n in _http_json(f"{url}/api/nodes")["nodes"]}
+        version = _http_json(f"{url}/api/version")
+        status = _cli(["status", "--address", gcs], env)
+        log(f"[operator] head up in {res['head_ready_s']:.2f} s (start to /api/cluster "
+            f"answering): GCS {gcs}, dashboard {url}, cluster {json.dumps(cluster)}, "
+            f"version {version}; `status`: {status.splitlines()[0]} on {card}")
+        if (cluster["nodes"] != 1 or cluster["cluster"]["total"].get("GPU", 0)
+                or version != {"version": ray_tpu_torch.__version__}
+                or "1 alive" not in status):
+            raise AssertionError(f"the head: {cluster}, {version}, {status}")
+        session_dir = json.loads((tmp / "cli_cluster.json").read_text())["nodes"][0][
+            "session_dir"]
+
+        # ---- 2. the autoscaler, one node type of one card
+        node_types = {"gpu-node": NodeTypeConfig(resources=dict(OPERATOR_NODE),
+                                                 max_workers=1)}
+        provider = FakeMultiNodeProvider(gcs, {k: v.to_dict() for k, v in node_types.items()},
+                                         session_dir=session_dir)
+        marks = {}
+        create = provider.create_node
+
+        def timed_create(node_type, count=1):
+            marks.setdefault("launch_at", time.time())
+            return create(node_type, count)
+
+        provider.create_node = timed_create
+        scaler = Autoscaler(gcs, provider, node_types, update_interval_s=0.5,
+                            idle_timeout_s=OPERATOR_IDLE_S)
+        scaler.start()
+        watching = threading.Event()
+        seen = []
+
+        def watch():   # when the card's node shows in /api/nodes, and goes
+            while not watching.is_set():
+                try:
+                    nodes = _http_json(f"{url}/api/nodes", timeout=10)["nodes"]
+                except Exception:
+                    nodes = []
+                gpu = [n for n in nodes if n["resources_total"].get("GPU")]
+                if gpu and gpu[0]["state"] == "ALIVE" and "up_at" not in marks:
+                    marks["up_at"] = time.time()
+                    seen.append(gpu[0])
+                    node_ids.add(gpu[0]["node_id"])
+                # the raylet registers before create_node lists it: gone is
+                # listed by the provider, then no longer
+                listed = bool(provider.non_terminated_nodes())
+                if listed and "up_at" in marks:
+                    marks["listed"] = True
+                if marks.get("listed") and "gone_at" not in marks and not listed:
+                    marks["gone_at"] = time.time()
+                    marks["gone_rows"] = gpu
+                time.sleep(0.1)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+
+        # ---- 3. the job, over HTTP
+        entry = tmp / "operator_job.py"
+        entry.write_text(OPERATOR_ENTRY)
+        job_cfg = {"deadline_s": OPERATOR_DEADLINE_S}
+        client = JobSubmissionClient(url)
+        t0 = time.perf_counter()
+        sid = client.submit_job(entrypoint=f"{sys.executable} {entry} {ROOT} "
+                                           f"'{json.dumps(job_cfg)}'")
+        deadline = time.time() + OPERATOR_DEADLINE_S
+        while (st := client.get_job_status(sid)) not in (
+                JobStatus.SUCCEEDED, JobStatus.FAILED, JobStatus.STOPPED):
+            if time.time() > deadline:
+                raise AssertionError(f"job {sid} still {st}: {client.get_job_logs(sid)}")
+            time.sleep(0.2)
+        res["job_s"] = time.perf_counter() - t0
+        logs = _http_json(f"{url}/api/jobs/{sid}/logs")["logs"]
+        if st != JobStatus.SUCCEEDED:
+            raise AssertionError(f"job {sid} ended {st}: {logs[-4000:]}")
+        job = json.loads(_job_lines(logs, "OPERATOR_RESULT")[-1])
+        demand_at = float(_job_lines(logs, "DEMAND_AT")[-1])
+        idle_at = float(_job_lines(logs, "IDLE_AT")[-1])
+        deadline = time.time() + OPERATOR_DEADLINE_S
+        while "gone_at" not in marks and time.time() < deadline:
+            time.sleep(0.2)
+        watching.set()
+        watcher.join(timeout=10)
+        if "up_at" not in marks or "gone_at" not in marks:
+            raise AssertionError(f"the card's node: {marks}, seen {seen}")
+        res.update(job, demand_to_node_up_s=marks["up_at"] - demand_at,
+                   demand_to_launch_s=marks["launch_at"] - demand_at,
+                   idle_to_node_gone_s=marks["gone_at"] - idle_at,
+                   serve_tokens_per_s=serve["tokens_per_s"])
+        log(f"[operator] job {sid} submitted over HTTP, SUCCEEDED in {res['job_s']:.2f} s "
+            f"on {card}: {json.dumps(job)}")
+        log(f"[operator] the job's GPT-2-124M actor: {job['tokens_per_s']:.1f} tokens/s "
+            f"(model build {job['build_s']:.2f} s) beside the serve phase's in-process "
+            f"{serve['tokens_per_s']:.1f} tokens/s; flash_attn_fwd launches "
+            f"{job['launches']}, plain calls {job['plain_calls']}, worst greedy gap "
+            f"{job['worst_gap']:.3g} against the card's plain forward (limit "
+            f"{GREEDY_TOL}) on {card}")
+        log(f"[operator] demand to the GPU node launched {res['demand_to_launch_s']:.2f} s, "
+            f"to it ALIVE in /api/nodes {res['demand_to_node_up_s']:.2f} s; idle to "
+            f"node gone {res['idle_to_node_gone_s']:.2f} s (idle timeout "
+            f"{OPERATOR_IDLE_S} s); the node's row {json.dumps(seen[:1])} on {card}")
+        deadline = time.time() + MULTINODE_DEATH_S   # the GCS marks it DEAD
+        while True:
+            gone = [n for n in _http_json(f"{url}/api/nodes")["nodes"]
+                    if n["resources_total"].get("GPU")]
+            if not any(n["state"] == "ALIVE" for n in gone) or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        res["idle_to_node_dead_s"] = time.time() - idle_at
+        log(f"[operator] the node DEAD in /api/nodes {res['idle_to_node_dead_s']:.2f} s "
+            f"after idle: {[n['state'] for n in gone]}")
+        if job["width"] != list(SERVE_WIDTH) \
+                or job["launches"] <= 0 or job["plain_calls"] \
+                or job["launches"] != serve["launches"] \
+                or job["worst_gap"] > GREEDY_TOL or not job["weights_equal"] \
+                or job["cuda_visible_devices"] != "0" \
+                or _job_lines(logs, "TORCH_IN_DRIVER") != ["False"]:
+            raise AssertionError(f"the job's result: {job}, logs {logs[-2000:]}")
+        if (not seen or seen[0]["resources_total"].get("GPU") != 1.0
+                or res["idle_to_node_gone_s"] <= 0
+                or any(n["state"] == "ALIVE" for n in gone)
+                or provider.non_terminated_nodes()):
+            raise AssertionError(f"the GPU node: seen {seen}, after {gone}")
+
+        # ---- a long job, stopped by the CLI
+        long_sid = client.submit_job(
+            entrypoint=f"{sys.executable} -c \"import time; print('LONG', flush=True); "
+                       f"time.sleep(600)\"")
+        deadline = time.time() + OPERATOR_DEADLINE_S
+        while client.get_job_status(long_sid) != JobStatus.RUNNING:
+            if time.time() > deadline:
+                raise AssertionError(f"job {long_sid} never ran")
+            time.sleep(0.2)
+        t0 = time.perf_counter()
+        _cli(["job", "--address", gcs, "stop", long_sid], env)
+        while (st := client.get_job_status(long_sid)) != JobStatus.STOPPED:
+            if time.time() > deadline:
+                raise AssertionError(f"job {long_sid} still {st}")
+            time.sleep(0.2)
+        res["stop_s"] = time.perf_counter() - t0
+        log(f"[operator] job {long_sid} RUNNING, `job stop` to STOPPED in "
+            f"{res['stop_s']:.2f} s")
+
+        # ---- 4. the perf gate writes a ledger of its own; history and the head read it
+        t0 = time.perf_counter()
+        report = _cli(["perf", "check", "--only", OPERATOR_PERF_ROWS, "--quick",
+                       "--history", str(history), "--update"], env, timeout=600)
+        res["perf_check_s"] = time.perf_counter() - t0
+        hist = _cli(["perf", "history", "--history", str(history)], env)
+        perf = _http_json(f"{url}/api/perf")
+        rows = perf["history"][-1]["metrics"] if perf["history"] else {}
+        log(f"[operator] perf check --only {OPERATOR_PERF_ROWS} --quick in "
+            f"{res['perf_check_s']:.2f} s on {card}:\n{report.strip()}\n"
+            f"[operator] perf history: {hist.strip()}\n[operator] /api/perf reads "
+            f"{perf['path']}: {json.dumps(rows)}")
+        if (perf["path"] != str(history) or len(perf["history"]) != 1
+                or set(rows) != set(OPERATOR_PERF_ROWS.split(","))
+                or not all(v > 0 for v in rows.values())):
+            raise AssertionError(f"the perf ledger: {perf}")
+        res["perf_rows"] = rows
+    finally:
+        # ---- 5. stop: no process of the phase and no plasma segment is left
+        if url is not None:
+            try:   # every node the head knows of, the dead one too
+                node_ids |= {n["node_id"]
+                             for n in _http_json(f"{url}/api/nodes")["nodes"]}
+            except Exception:
+                pass
+        if scaler is not None:
+            scaler.stop()
+        if provider is not None:
+            provider.shutdown()
+        procs = []
+        state_file = tmp / "cli_cluster.json"
+        if state_file.exists():
+            for node in json.loads(state_file.read_text()).get("nodes", []):
+                for pid in node.get("pids", []):
+                    try:
+                        p = psutil.Process(pid)
+                        procs += [p] + p.children(recursive=True)
+                    except psutil.NoSuchProcess:
+                        pass
+            _cli(["stop"], env)
+            stopped = True
+        procs += psutil.Process().children(recursive=True)
+        gone, alive = psutil.wait_procs(procs, timeout=RUNTIME_STOP_S)
+        for proc in alive:
+            proc.kill()
+        psutil.wait_procs(alive, timeout=10)
+        left = _plasma_segments(node_ids)
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"[operator] stop: {len(gone)} of the phase's {len(procs)} processes left "
+            f"within {RUNTIME_STOP_S} s, {len(alive)} killed; plasma segments of its "
+            f"{len(node_ids)} nodes left {left}")
+    if not stopped or alive or left or len(node_ids) != 2:
+        raise AssertionError(f"stop left processes {[p.pid for p in alive]}, "
+                             f"segments {left} of the nodes {sorted(node_ids)}")
+    res["processes_stopped"] = len(gone)
+    return res
+
+
 def _trainer_ranks_loop(config):
     """The loop of ``--ranks``' trainer: every worker on its leased card, one
     NCCL group over them (brought up by ``TorchTrainer``); GPT-2-124M bf16
@@ -4488,6 +4856,7 @@ def main() -> int:
     rllib = phase_rllib(card)
     multinode = phase_multinode(card, serve, runtime)
     dag, wf = phase_graphs(card)
+    operator = phase_operator(card, serve)
     del llama_cpu
     spec.pop("same_seed_outputs")
     for key in ("prompts", "outputs", "cpu_model"):
@@ -4515,7 +4884,7 @@ def main() -> int:
                    "multinode_pool": multinode["pool_plain_calls"],
                    "multinode_grads": multinode["grads_plain_calls"],
                    "dag_stage_a": dag["plain_calls_a"], "dag_stage_b": dag["plain_calls_b"],
-                   "workflow": wf["plain_calls"]}
+                   "workflow": wf["plain_calls"], "operator": operator["plain_calls"]}
     if any(plain_calls.values()):
         raise AssertionError(f"a full-width path left the kernels: {plain_calls}")
     fp32_bwd = [c for c in bwd_cases if c["dtype"] == "float32"]
@@ -4543,7 +4912,8 @@ def main() -> int:
                              "multinode_grads": multinode["grads_launches"][0],
                              "dag_stage_a": dag["launches_a"],
                              "dag_stage_b": dag["launches_b"],
-                             "workflow": wf["launches"]},
+                             "workflow": wf["launches"],
+                             "operator": operator["launches"]},
         "max_abs_err": max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
                            if c["dtype"] == "float32"),
         "max_abs_err_by_dtype": {dt: max(max(c["err_o"], c["err_lse"]) for c in fwd_cases
@@ -4626,6 +4996,7 @@ def main() -> int:
     log(f"[multinode] {json.dumps(multinode)}")
     log(f"[dag] {json.dumps(dag)}")
     log(f"[workflow] {json.dumps(wf)}")
+    log(f"[operator] {json.dumps(operator)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

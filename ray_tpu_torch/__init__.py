@@ -13,8 +13,8 @@ family of the JAX zoo, speculative decoding, the metrics and the flight
 recorder, the training step on a mesh of dp, fsdp, tp, sp, ep and pp, the
 runtime's core, the serve deployment on it, the trainer with Tune and
 placement groups, data, RLlib with its dp learner over several cards,
-several nodes on one machine with the rest of ``util``, and compiled
-graphs with workflows):
+several nodes on one machine with the rest of ``util``, compiled
+graphs with workflows, and the operator plane):
 
   api.py, actor.py,      init / remote / get / put / wait / kill / shutdown,
   remote_function.py,    actors and tasks with ``num_gpus`` (copies of the
@@ -113,20 +113,36 @@ graphs with workflows):
                          a CUDA tensor crosses as its host copy
   workflow/              durable DAG execution with resume, virtual actors
                          (copies, the JAX storage layout)
+  dashboard/             the HTTP head (state, jobs, logs, profiles, perf,
+                         memory, train / serve telemetry; GPUs on its page
+                         and in its Grafana dashboard) and the node agent
+  job_submission/        JobSubmissionClient (GCS or the head's REST) and
+                         the JobSupervisor actor running an entrypoint as
+                         a subprocess with RTPU_TORCH_ADDRESS set
+  autoscaler/            the demand scheduler and control loop, node
+                         providers (fake multi-node, command, GCP TPU VMs),
+                         and the YAML launcher (``up`` / ``down``)
+  scripts.py             the operator CLI ``ray-tpu-torch``: start, stop,
+                         up, down, status, job, perf, lint, ... (copies)
+  _private/perf_gate.py  the perf gate over the port's microbench
+                         (_private/microbench.py) and its own ledger
+  _private/lint/         the static checks of the port's contracts
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back. This
 module and the runtime's control plane (the GCS, the raylet, the fork
 server) never import torch: a worker first touches CUDA after its lease's
 ``CUDA_VISIBLE_DEVICES`` is set; importing ``train``, ``tune``, ``data``,
-``rllib``, ``dag``, ``experimental`` or ``workflow`` loads no torch either, so a trainer's trial actor and an RL env
-runner never load it.
+``rllib``, ``dag``, ``experimental``, ``workflow``, ``dashboard``,
+``job_submission``, ``autoscaler`` or ``scripts`` loads no torch either, so
+a trainer's trial actor, an RL env runner, the head and the CLI never load
+it.
 
 Attribute access is lazy (PEP 562), as in ``ray_tpu``: control-plane
 processes that import only their own submodules don't pay for the API.
 """
 
-__version__ = "0.1.0"
+from ray_tpu_torch._version import version as __version__
 
 _API = {
     "available_resources", "cancel", "cluster_resources", "get", "init",
@@ -181,7 +197,7 @@ def __getattr__(name):
 
         return _cu
     if name in ("train", "tune", "serve", "data", "rllib", "workflow", "dag",
-                "experimental"):
+                "experimental", "autoscaler", "job_submission"):
         import importlib
 
         return importlib.import_module(f"ray_tpu_torch.{name}")

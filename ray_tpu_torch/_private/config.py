@@ -181,9 +181,11 @@ _FLAGS: Dict[str, Any] = {
     # --- perf regression plane (stability contract) -------------------------
     # Same contract as the profiling flags above: operators and CI key on
     # these names (perf.yml, README "Catching a perf regression").
-    #   perf_history_path            the perf ledger (JSONL, one entry per
-    #                                committed measurement); relative paths
-    #                                resolve against the repo root
+    #   perf_history_path            the port's perf ledger (JSONL, one
+    #                                entry per committed measurement; not
+    #                                the JAX package's PERF_HISTORY.jsonl);
+    #                                relative paths resolve against the
+    #                                repo root
     #   perf_band_scale              multiplier applied to every noise band
     #                                in _private/perf_gate.py (set >1 on
     #                                boxes noisier than the reference box)
@@ -195,7 +197,7 @@ _FLAGS: Dict[str, Any] = {
     #   perf_compile_warmup_steps    compiles while total recorded steps
     #                                <= N are expected (first trace /
     #                                shape priming) and never counted
-    "perf_history_path": "PERF_HISTORY.jsonl",
+    "perf_history_path": "PERF_HISTORY_TORCH.jsonl",
     "perf_band_scale": 1.0,
     "perf_compile_storm_k": 3,
     "perf_compile_storm_window_s": 120.0,

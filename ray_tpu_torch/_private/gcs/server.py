@@ -1524,7 +1524,7 @@ class GcsServer:
 
     async def handle_ListIncidents(self, req):
         """detail=False (default) strips the bulky stacks/ring payloads —
-        the shape `ray-tpu status` and dashboards poll; `debug` passes
+        the shape `ray-tpu-torch status` and dashboards poll; `debug` passes
         detail=True for the full forensics records."""
         limit = req.get("limit") or 100
         out = self.incidents[-limit:]
@@ -1627,7 +1627,7 @@ class GcsServer:
         return render_prometheus(samples)
 
     async def handle_DumpFlightRecorder(self, req):
-        """The control plane's own ring — `ray-tpu debug dump` includes it
+        """The control plane's own ring — `ray-tpu-torch debug dump` includes it
         so a GCS-side stall (scheduling wedged, pubsub dead) is visible in
         the same archive as the data-plane rings."""
         return {"pid": os.getpid(), "events": _fr.dump(req.get("limit") or 0)}

@@ -154,6 +154,12 @@ class Node:
 
     def _start_raylet(self):
         port_file = os.path.join(self.session_dir, f"raylet_port_{self.node_name}")
+        # a node of the same name earlier in the session (Cluster names a
+        # node after the count of live ones) left its port here
+        try:
+            os.unlink(port_file)
+        except FileNotFoundError:
+            pass
         out, err = self._log_files(f"raylet_{self.node_name}")
         cmd = [
             sys.executable, "-m", "ray_tpu_torch._private.raylet.main",
@@ -193,6 +199,7 @@ class Node:
 
     def shutdown(self):
         self._shutting_down = True
+        had_raylet = any(name.startswith("raylet") for name in self.processes)
         if self._gcs_monitor is not None and self._gcs_monitor.is_alive():
             # Let an in-flight restart finish (and self-reap) before we
             # sweep self.processes, so no freshly-spawned GCS escapes.
@@ -212,3 +219,10 @@ class Node:
                 except Exception:
                     pass
         self.processes.clear()
+        if had_raylet:
+            # A raylet unlinks its store's segment on SIGTERM; one killed
+            # outright (kill_raylet, a crash) leaves it in /dev/shm.
+            try:
+                os.unlink(f"/dev/shm/rtpu_torch_plasma_{self.node_id.hex()[:12]}")
+            except OSError:
+                pass

@@ -5,7 +5,7 @@ task/span timeline + device-trace links) to every incident it opens — but a
 multi-MB trace is an artifact an operator has to go open. This pass closes
 the loop: it inspects the capture the moment it is written and records a
 compact, human-readable analysis *inside the incident record itself*, so
-``ray-tpu debug incidents`` / ``GET /api/perf`` show the probable cause
+``ray-tpu-torch debug incidents`` / ``GET /api/perf`` show the probable cause
 without anyone loading Perfetto:
 
   - **top folded stacks** — where the cluster's CPU time actually went

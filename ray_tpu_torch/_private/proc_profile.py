@@ -4,7 +4,7 @@ Set ``RTPU_TORCH_PROFILE_PROC=<dir>`` before starting a cluster and every daemon
 (GCS, raylet) dumps ``<dir>/<name>-<pid>.prof`` when it receives SIGTERM or
 exits cleanly. Complements the profiling plane's on-demand sampler
 (`_private/sampling_profiler.py` behind StartProfile/CollectProfile,
-`ray-tpu profile`, `/api/profile`): the sampler is timed windows while the
+`ray-tpu-torch profile`, `/api/profile`): the sampler is timed windows while the
 cluster runs; this one is cProfile whole-life coverage with zero blind
 spots at process start, which is where burst bottlenecks (actor-creation
 storms) live. Inspect with ``python -m pstats`` or snakeviz.

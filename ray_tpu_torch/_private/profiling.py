@@ -285,7 +285,7 @@ def fold_bundle(bundle: dict) -> Dict[str, int]:
 
 # ------------------------------------------------------- capture registry
 # Triggered and on-demand captures register their output path in the GCS
-# KV so `ray-tpu debug dump` and the dashboard can find "the latest
+# KV so `ray-tpu-torch debug dump` and the dashboard can find "the latest
 # captures" without a filesystem convention shared across hosts.
 
 _CAPTURE_NS = b"profiling"

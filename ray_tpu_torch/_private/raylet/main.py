@@ -2227,7 +2227,7 @@ class NodeManager:
         """Memory plane fan-in: this node's plasma + spill + pin tables
         joined with every live worker's ownership ledger and per-role RSS
         in one reply (util.state aggregates the cluster view).
-        ``sweep=True`` forces a leak sweep first (`ray-tpu memory --leaks`
+        ``sweep=True`` forces a leak sweep first (`ray-tpu-torch memory --leaks`
         wants current truth, not the last cadence's)."""
         from ray_tpu_torch._private import memory_report as _mr
 
@@ -3002,7 +3002,7 @@ class NodeManager:
 
     async def handle_DumpFlightRecorder(self, req):
         """Forensics fan-in: this raylet's ring plus every live local
-        worker's ring in one reply (`ray-tpu debug dump` calls this once
+        worker's ring in one reply (`ray-tpu-torch debug dump` calls this once
         per node)."""
         limit = req.get("limit") or 0
         out = {

@@ -22,7 +22,7 @@ On trigger it captures evidence while the hang is still live — its own
 stacks via profiling.sample_stacks, the stuck task's executing worker via
 profiling.profile_via_raylets, and a flight-recorder ring snapshot — and
 publishes an **incident** record to the GCS (``ReportIncident``), where
-``ray-tpu status`` counts it and ``ray-tpu debug incidents`` / ``debug
+``ray-tpu-torch status`` counts it and ``ray-tpu-torch debug incidents`` / ``debug
 dump`` retrieve it. Each condition fires once per subject (task id / lease
 id / recorder) — a stuck mesh must not turn into an incident storm.
 """
@@ -76,7 +76,7 @@ def capture_incident_profile(core, reason: str) -> Optional[str]:
     merged with the current task/span timeline and any registered device
     traces into a Perfetto-loadable JSON under
     ``<session>/logs/profiles/``. Returns the file path (registered in the
-    GCS capture registry so `ray-tpu debug dump` and the dashboard find
+    GCS capture registry so `ray-tpu-torch debug dump` and the dashboard find
     it), or None when capture failed — incident publishing must never
     depend on it."""
     import json

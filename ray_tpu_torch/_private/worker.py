@@ -1059,7 +1059,7 @@ class CoreWorker:
                 f"[ray_tpu_torch] ray_tpu_torch.get of {n_refs} ref(s) was blocked "
                 f"for {elapsed_s:.0f}s — the producing actor call may be "
                 "queued behind earlier calls or stalled (see "
-                "`ray-tpu debug incidents` / `ray-tpu timeline`)",
+                "`ray-tpu-torch debug incidents` / `ray-tpu-torch timeline`)",
                 file=_sys.stderr, flush=True,
             )
 
@@ -1083,7 +1083,7 @@ class CoreWorker:
                 f"[ray_tpu_torch] ray_tpu_torch.get of {n_refs} ref(s) has been "
                 f"blocked for {warn_s:.0f}s — the producing task may be "
                 "queued, failed without a reply, or stalled (see "
-                "`ray-tpu debug incidents` / `ray-tpu timeline`)",
+                "`ray-tpu-torch debug incidents` / `ray-tpu-torch timeline`)",
                 file=_sys.stderr, flush=True,
             )
             return fut.result()
@@ -2771,7 +2771,7 @@ class CoreWorker:
 
     async def handle_DumpFlightRecorder(self, req):
         """Forensics: this process's flight-recorder ring, formatted
-        (raylet fans this out for `ray-tpu debug dump`)."""
+        (raylet fans this out for `ray-tpu-torch debug dump`)."""
         return {
             "worker_id": self.worker_id.binary(),
             "pid": os.getpid(),

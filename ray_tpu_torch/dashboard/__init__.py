@@ -1,3 +1,8 @@
-"""ray_tpu_torch.dashboard — the per-node agent (``agent.py``) that the
-raylet spawns. The HTTP head (``ray_tpu/dashboard/head.py``) comes to the
-port with ROADMAP item 11d (the operator half of 11c)."""
+"""ray_tpu_torch.dashboard — HTTP surface over the cluster's state + jobs
+(``head.py``, started by ``ray-tpu-torch start --head --dashboard-port``),
+its Grafana dashboard (``grafana.py``), and the per-node agent
+(``agent.py``) that the raylet spawns."""
+
+from ray_tpu_torch.dashboard.head import DashboardHead, start_dashboard
+
+__all__ = ["DashboardHead", "start_dashboard"]

@@ -289,7 +289,8 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     """Every module of the port (the runtime's too: the GCS, the raylet,
     the workers, the dashboard agent; the trainer, Tune and placement
     groups; the data package; RLlib; the Cluster and the rest of util; the
-    compiled graphs, their channels and workflows) imports without JAX and without side
+    compiled graphs, their channels and workflows; the head, job submission,
+    the autoscaler, the CLI, the perf gate and the lint) imports without JAX and without side
     effects: no thread, no child process, no signal handler."""
     code = (
         "import importlib, multiprocessing, pkgutil, signal, sys, threading\n"
@@ -325,9 +326,20 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
         "        'ray_tpu_torch.util.client.server', 'ray_tpu_torch.util.loadgen',\n"
         "        'ray_tpu_torch.dag', 'ray_tpu_torch.dag.node', 'ray_tpu_torch.dag.compiled',\n"
         "        'ray_tpu_torch.experimental', 'ray_tpu_torch.experimental.channel',\n"
-        "        'ray_tpu_torch.workflow', 'ray_tpu_torch.workflow.virtual_actor'} <= set(names)\n"
+        "        'ray_tpu_torch.workflow', 'ray_tpu_torch.workflow.virtual_actor',\n"
+        "        'ray_tpu_torch.scripts', 'ray_tpu_torch._version',\n"
+        "        'ray_tpu_torch.dashboard.head', 'ray_tpu_torch.dashboard.grafana',\n"
+        "        'ray_tpu_torch.job_submission', 'ray_tpu_torch.job_submission._manager',\n"
+        "        'ray_tpu_torch.autoscaler', 'ray_tpu_torch.autoscaler.autoscaler',\n"
+        "        'ray_tpu_torch.autoscaler.scheduler', 'ray_tpu_torch.autoscaler.node_provider',\n"
+        "        'ray_tpu_torch.autoscaler.launcher', 'ray_tpu_torch.autoscaler.gcp_tpu',\n"
+        "        'ray_tpu_torch._private.perf_gate', 'ray_tpu_torch._private.microbench',\n"
+        "        'ray_tpu_torch._private.lint', 'ray_tpu_torch._private.lint.core',\n"
+        "        'ray_tpu_torch._private.lint.contracts', 'ray_tpu_torch._private.lint.blocking',\n"
+        "        'ray_tpu_torch._private.lint.shard_safety'} <= set(names)\n"
         "ray_tpu_torch.tune, ray_tpu_torch.cluster_utils, ray_tpu_torch.util.ActorPool\n"
         "ray_tpu_torch.dag, ray_tpu_torch.workflow, ray_tpu_torch.experimental\n"
+        "ray_tpu_torch.autoscaler, ray_tpu_torch.job_submission\n"
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not multiprocessing.active_children()\n"
         "assert handlers == {s: signal.getsignal(s) for s in handlers}\n"

@@ -177,6 +177,21 @@ def test_removed_node_unlinks_its_store(three_node_cluster):
     assert not os.path.exists(segment)
 
 
+def test_killed_node_unlinks_its_store_at_shutdown(three_node_cluster):
+    """A raylet killed outright cannot unlink its plasma segment; the
+    node's shutdown does it."""
+    node = three_node_cluster.add_node(resources={"CPU": 1, "GPU": 0})
+    three_node_cluster.wait_for_nodes()
+    segment = f"/dev/shm/rtpu_torch_plasma_{node.node_id.hex()[:12]}"
+    assert os.path.exists(segment)
+    node.kill_raylet()
+    for proc in node.processes.values():
+        proc.wait(timeout=10)
+    assert os.path.exists(segment)
+    three_node_cluster.remove_node(node)
+    assert not os.path.exists(segment)
+
+
 def test_node_death_detected(three_node_cluster):
     cluster = three_node_cluster
     victim = cluster.nodes[-1]

@@ -221,6 +221,15 @@ def test_control_plane_imports_leave_torch_out_in_a_fresh_interpreter():
         "from ray_tpu_torch.experimental import channel\n"
         "from ray_tpu_torch.workflow import virtual_actor\n"
         "ray_tpu_torch.remote(lambda: 1).bind(), ray_tpu_torch.dag.InputNode()  # nodes\n"
+        "from ray_tpu_torch import scripts, _version  # the operator plane (11d)\n"
+        "from ray_tpu_torch.dashboard import grafana, head\n"
+        "from ray_tpu_torch.job_submission import _manager\n"
+        "from ray_tpu_torch.autoscaler import (autoscaler, gcp_tpu, launcher,\n"
+        "                                      node_provider, scheduler)\n"
+        "from ray_tpu_torch._private import microbench, perf_gate\n"
+        "from ray_tpu_torch._private.lint import blocking, contracts, core, shard_safety\n"
+        "ray_tpu_torch.autoscaler, ray_tpu_torch.job_submission  # lazy attributes\n"
+        "grafana.generate_dashboard(), head.DashboardHead('127.0.0.1:1')._perf_api({})\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -150,6 +150,9 @@ def test_flag_table_is_the_jax_table_with_num_gpus_for_the_tpu_flags():
             if k not in ("num_tpu_chips", "tpu_pod_type")}
     got = dict(tconfig._FLAGS)
     assert got.pop("num_gpus") == -1
+    # the perf gate's ledger: the port's own, never the JAX package's file
+    assert got.pop("perf_history_path") == "PERF_HISTORY_TORCH.jsonl"
+    assert want.pop("perf_history_path") == "PERF_HISTORY.jsonl"
     assert got == want
 
 

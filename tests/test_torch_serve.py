@@ -3,9 +3,9 @@ tests/test_serve.py (deployments, replicas, pow-2 routing, the HTTP proxy,
 composition, recovery, batching, redeploy, autoscaling, request metrics and
 the error counter), run on ``ray_tpu_torch.init(num_cpus=8)``.
 
-The port has no dashboard head (ROADMAP item 11d), so the metrics test reads
-the ``/api/serve`` summary through the JAX package's ``DashboardHead`` over the
-port's GCS client: the same records, the same aggregation.
+The metrics test reads the ``/api/serve`` summary through the port's own
+``DashboardHead`` (``ray_tpu_torch/dashboard/head.py``) over the port's GCS
+client.
 
 Every test carries its own deadline, below the conftest's 180 s default, and
 the fixture's teardown is bounded (``tests/_torch_runtime.py``).
@@ -278,10 +278,10 @@ def test_request_metrics_and_latency_histogram_export(serve_cluster):
     assert "ray_tpu_serve_inflight_requests" in text
 
     # structured summary over the same series
-    from ray_tpu.dashboard.head import DashboardHead
+    from ray_tpu_torch.dashboard.head import DashboardHead
 
     head = DashboardHead(w.gcs.address)
-    head._gcs = w.gcs      # the port's GCS client: the same wire and records
+    head._gcs = w.gcs      # this process's GCS client
     status, payload = head._serve_api()
     assert status == 200
     dep = payload["deployments"]["metrics#tick"]
