@@ -46,7 +46,10 @@ script exits non-zero:
              the recorder opens (request_device_trace(1): torch.profiler,
              written as a Chrome trace), read back for its kernel times,
              the attention kernels' share and the device's busy share; the
-             recorder's slow-step flag; then one fp32 step at full width
+             recorder's slow-step flag; the recorder's report keys through
+             publish_report_summary, read back from the port's metric table
+             (all seven ray_tpu_train_* gauges under the run's label, each
+             equal to its key); then one fp32 step at full width
              on (2, 128) on the card and on the CPU plain path from the
              same weights
   8. llama   Llama-160M at full width (12 layers, 12 heads, 4 KV heads
@@ -54,7 +57,9 @@ script exits non-zero:
              the fp32 forward at (4, 512) against the CPU, serving as in
              phase 6 (build_adapter("llama-160m")), training as in phase 7
              (bf16, B = 16, T = 1024, with the exact 6N MFU beside the
-             recorder's), and one fp32 step on (2, 128) against the CPU
+             recorder's), one fp32 step on (2, 128) against the CPU, and
+             models/llama.py's loss_fn on the fp32 forward's logits against
+             the loss TrainStep reports (1e-4 relative)
   9. spec    speculative decoding: the Llama-160M target answers phase 6's
              prompts without a draft and with two (a same-seed llama-160m,
              acceptance near 1; llama-tiny at vocabulary 32000, near 0),
@@ -137,8 +142,13 @@ script exits non-zero:
              kernel launches and no plain attention call runs. Then
              llm.deploy(model="llama-160m", draft_model="llama-160m",
              spec_k=4): streams equal phase 9's same-seed run (near-tie
-             rule) and, where all are equal, its acceptance equal too;
-             every process the runtime started is stopped
+             rule) and, where all are equal, its acceptance equal too.
+             Between the two, DeploymentHandle.close as in the JAX package:
+             the closed handle leaves the process's long-poll, a call on it
+             still answers as before, and a new handle serves a prompt the
+             prefix cache has not seen through the forward kernel (launches
+             above 0, no plain call, greedy tokens near the CPU's); every
+             process the runtime started is stopped
  17. trainer  the trainer on the runtime (a new init(num_cpus=4)):
              TorchTrainer(loop, ScalingConfig(num_workers=1, use_gpu=True),
              RunConfig(storage_path=<tmp>)).fit(), a one-trial Tune run
@@ -284,8 +294,9 @@ script exits non-zero:
 Then one JSON line of kernels (launches and plain attention calls per
 path: GPT-2 train and serve, Llama train and serve, spec, MoE train, mesh
 train, MoE on the mesh, the pipeline, the runtime's actor and task, the
-two deployments, the trainer, the trainer fed by a Dataset, the multinode
-pool and gradients, the two DAG stages, the workflow step and the operator's job; every
+two deployments and the first one's new handle after a close, the
+trainer, the trainer fed by a Dataset, the multinode pool and gradients,
+the two DAG stages, the workflow step and the operator's job; every
 full-width path must show 0 plain calls) and, last,
 ``{"ok": true, "device": ...}``.
 
@@ -1203,8 +1214,32 @@ def phase_train(card: str):
         raise AssertionError(f"not GPT-2-124M at full width in bf16: {cfg}")
     train = train_run(card, "train", "gpt2-124m", cfg, TRAIN_BATCH, TRAIN_STEPS,
                       profiled=True)
+    train["report_gauges"] = report_gauges("train", "gpt2-124m")
     train["parity"] = train_parity(card, "train", GPT2Config.gpt2_124m(dtype=torch.float32))
     return train
+
+
+def report_gauges(tag: str, run_name: str) -> dict:
+    """The ``telemetry/*`` keys a trainer's report attaches from the current
+    recorder (``auto_report_metrics``), published with
+    ``publish_report_summary`` and read back from the port's metric table:
+    each of the seven keys (all set on the card) gives its
+    ``ray_tpu_train_*`` gauge under ``{"run": run_name}``, equal to it."""
+    from ray_tpu_torch.train import _telemetry
+    from ray_tpu_torch.train._report_gauges import _REPORT_GAUGES
+    from ray_tpu_torch.util import metrics
+
+    report = _telemetry.auto_report_metrics()
+    _telemetry.publish_report_summary(report, run_name=run_name)
+    got = {r["name"]: r["value"] for r in metrics.drain_records()
+           if r["kind"] == "gauge" and r["labels"] == {"run": run_name}}
+    want = {name: float(report[key]) for key, name in _REPORT_GAUGES.items()
+            if key in report}
+    log(f"[{tag}] publish_report_summary, read back under run={run_name!r}: "
+        f"{json.dumps(got)}")
+    if len(want) != len(_REPORT_GAUGES) or got != want:
+        raise AssertionError(f"report gauges {got}, expected {want} from {report}")
+    return got
 
 
 def first_steps_probe(card: str, tag: str, cfg):
@@ -1275,6 +1310,34 @@ def train_parity(card: str, tag: str, cfg):
     return out
 
 
+def llama_loss_fn_check(card: str, cfg) -> dict:
+    """``models/llama.py``'s ``loss_fn`` on its ``forward``'s fp32 logits
+    against the loss ``TrainStep.step`` reports for the same weights and
+    batch on the card (TRAIN_REL_TOL)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.train_step import TrainStep
+
+    ts = TrainStep(cfg, device=DEVICE, telemetry=False)
+    state = ts.init(torch.Generator().manual_seed(1))
+    idx = np.random.default_rng(1).integers(0, cfg.vocab_size, PARITY_BATCH)
+    batch = ts.shard_batch({"idx": idx, "targets": np.roll(idx, -1, axis=1)})
+    model = state["params"]
+    with torch.no_grad():
+        direct = llama.loss_fn(llama.forward(cfg, model, batch["idx"]),
+                               batch["targets"]).item()
+    out = {"loss_fn": direct}
+    state, m = ts.step(state, batch)
+    out["step_loss"] = m["loss"].item()
+    out["rel_err"] = abs(direct - out["step_loss"]) / abs(out["step_loss"])
+    log(f"[llama] loss_fn on the fp32 forward's logits vs TrainStep's loss, "
+        f"{PARITY_BATCH} on {card}: {json.dumps(out)}")
+    if out["rel_err"] > TRAIN_REL_TOL:
+        raise AssertionError(f"llama.loss_fn against TrainStep's loss: {out}")
+    del ts, state, batch, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_llama(card: str):
     """Llama-160M at full width (GQA: k/v repeated from 4 to 12 heads
     before the kernels): forward against the CPU, serving, training, and
@@ -1302,6 +1365,7 @@ def phase_llama(card: str):
                       TRAIN_BATCH, TRAIN_STEPS, profiled=True)
     train["first_steps"] = first_steps_probe(card, "llama", LlamaConfig.llama_160m())
     train["parity"] = train_parity(card, "llama", cfg)
+    train["loss_fn"] = llama_loss_fn_check(card, cfg)
     return {"serve_launches": serve["launches"], "serve_plain_calls": serve["plain_calls"],
             "serve_tokens_per_s": serve["tokens_per_s"],
             "serve_telemetry": serve["telemetry"], "train": train,
@@ -1899,6 +1963,23 @@ def _object_task(t):
     return t.to(DEVICE)
 
 
+def script_children():
+    """Every process below this one but multiprocessing's resource tracker,
+    which ``--ranks`` starts with its spawn context's queue and which holds
+    that queue's semaphores until this process exits: killed with the
+    runtime's processes, it made the exit print ``resource_tracker: process
+    died unexpectedly`` and a KeyError for each semaphore."""
+    import psutil
+
+    def tracker(proc) -> bool:
+        try:
+            return "multiprocessing.resource_tracker" in " ".join(proc.cmdline())
+        except psutil.Error:
+            return False
+
+    return [p for p in psutil.Process().children(recursive=True) if not tracker(p)]
+
+
 def stop_runtime(rt) -> None:
     """``rt.shutdown()``, then wait for every process the runtime started:
     actor workers (forks of the fork server, in sessions of their own)
@@ -1906,7 +1987,7 @@ def stop_runtime(rt) -> None:
     them. Any still alive after RUNTIME_STOP_S is killed."""
     import psutil
 
-    procs = psutil.Process().children(recursive=True)
+    procs = script_children()
     rt.shutdown()
     gone, alive = psutil.wait_procs(procs, timeout=RUNTIME_STOP_S)
     for proc in alive:
@@ -2153,6 +2234,43 @@ def near_greedy(cpu_model, prompts, outputs, ref):
     return differ, worst
 
 
+def handle_close_check(card: str, rt_serve, h, cpu_model, prompt, tokens) -> dict:
+    """``DeploymentHandle.close`` as the reference does it
+    (``ray_tpu/serve/_handle.py:307``): the handle leaves the process's
+    long-poll (its replica set loses one holder) and joins it no more; a
+    call on it still routes, from the set it last saw, and answers as
+    before; a new handle subscribes and serves a prompt the prefix cache
+    has not seen through the forward kernel, with no plain attention call
+    and every greedy token within GREEDY_TOL of the CPU plain forward's max
+    logit."""
+    from ray_tpu_torch.serve._handle import _replica_set
+
+    rs = _replica_set(h.deployment_name)
+    held = rs.holders
+    h.close()
+    released = held - rs.holders
+    again = h.remote(prompt, max_tokens=SERVE_MAX_TOKENS).result(timeout=300)["tokens"]
+    out = {"holders_before_close": held, "released": released,
+           "closed_call_equal": again == tokens,
+           "closed_call_resubscribed": rs.holders != held - 1}
+    fresh = rt_serve.get_app_handle("gpt2")
+    fresh.probe.remote(reset=True).result(timeout=60)
+    new_prompt = np.random.default_rng(1).integers(
+        0, SERVE_WIDTH[3], SERVE_PROMPT_LENS[3]).tolist()
+    toks = fresh.remote(new_prompt, max_tokens=SERVE_MAX_TOKENS).result(timeout=300)["tokens"]
+    counts = fresh.probe.remote().result(timeout=60)
+    out.update(new_handle_subscribed=fresh._sub is rs, tokens=len(toks),
+               launches=counts["launches"], plain_calls=counts["plain_calls"],
+               worst_greedy_gap=max(greedy_gaps(cpu_model, {0: new_prompt}, {0: toks})[0]))
+    log(f"[serve_deploy] after close: {json.dumps(out)} on {card}")
+    if (released != 1 or not out["closed_call_equal"] or out["closed_call_resubscribed"]
+            or not out["new_handle_subscribed"] or len(toks) != SERVE_MAX_TOKENS
+            or counts["launches"] == 0 or counts["plain_calls"]
+            or out["worst_greedy_gap"] > GREEDY_TOL):
+        raise AssertionError(f"DeploymentHandle.close: {out}")
+    return out
+
+
 def phase_serve_deploy(card: str, serve, runtime, spec, llama_prompts, llama_cpu):
     """The serve deployment on the card: ``llm.deploy(model="gpt2")`` starts
     one replica on one leased card (its start split into the lease, the
@@ -2161,7 +2279,8 @@ def phase_serve_deploy(card: str, serve, runtime, spec, llama_prompts, llama_cpu
     warm run and a timed one, plus one ``generate`` and one handle call;
     every stream equals the in-process serve phase's (or leaves it only at
     a near tie of the CPU plain forward); inside the replica the forward
-    kernel launches and no plain attention call runs. Then
+    kernel launches and no plain attention call runs; then its handle is
+    closed (``handle_close_check``). Then
     ``llm.deploy(model="llama-160m", draft_model="llama-160m", spec_k=4)``:
     its streams equal the spec phase's same-seed run (near-tie rule) and
     its acceptance equals that run's. Every process the runtime started is
@@ -2236,6 +2355,8 @@ def phase_serve_deploy(card: str, serve, runtime, spec, llama_prompts, llama_cpu
         if (counts["launches"] == 0 or counts["plain_calls"] or worst > GREEDY_TOL
                 or not (res["warm_equal"] and res["generate_equal"] and res["call_equal"])):
             raise AssertionError(f"the deployment's serving path: {res}")
+        res["after_close"] = handle_close_check(card, rt_serve, h, serve["cpu_model"],
+                                                prompts[0], outputs[0])
         rt_serve.delete("gpt2")
 
         ref = spec["same_seed_outputs"]
@@ -3255,7 +3376,7 @@ def stop_cluster(rt, cluster, extra=()) -> None:
 
     for proc in extra:
         proc.terminate()
-    procs = psutil.Process().children(recursive=True)
+    procs = script_children()
     try:
         rt.shutdown()
     finally:
@@ -4221,7 +4342,7 @@ def phase_operator(card: str, serve):
                         pass
             _cli(["stop"], env)
             stopped = True
-        procs += psutil.Process().children(recursive=True)
+        procs += script_children()
         gone, alive = psutil.wait_procs(procs, timeout=RUNTIME_STOP_S)
         for proc in alive:
             proc.kill()
@@ -4879,6 +5000,8 @@ def main() -> int:
                    "runtime_train": runtime["train_plain_calls"],
                    "serve_deploy": serve_deploy["plain_calls"],
                    "serve_deploy_spec": serve_deploy["spec"]["plain_calls"],
+                   "serve_deploy_after_close":
+                       serve_deploy["after_close"]["plain_calls"],
                    "trainer": trainer["plain_calls"],
                    "data": data["plain_calls"],
                    "multinode_pool": multinode["pool_plain_calls"],
@@ -4906,6 +5029,8 @@ def main() -> int:
                              "runtime_train": runtime["train_launches"][0],
                              "serve_deploy": serve_deploy["launches"],
                              "serve_deploy_spec": serve_deploy["spec"]["launches"],
+                             "serve_deploy_after_close":
+                                 serve_deploy["after_close"]["launches"],
                              "trainer": trainer["launches"][0],
                              "data": data["launches"][0],
                              "multinode_pool": multinode["pool_launches"],

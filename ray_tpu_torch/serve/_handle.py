@@ -19,7 +19,9 @@ until it answers, up to ``_POLL_TIMEOUT_S``, so polls per handle (each
 ``options()`` and each method attribute is a new handle) or per deployment
 would fill those slots and hold back every other controller call of the
 process (``serve.start_rpc_ingress``, the proxy's route refresh, a forced
-refresh).
+refresh). A handle subscribes its deployment to that poll when it first
+routes; :meth:`DeploymentHandle.close` ends its subscription, and the poll
+ends when no open handle is left.
 """
 
 from __future__ import annotations
@@ -144,6 +146,8 @@ class DeploymentHandle:
         self._idempotent = idempotent
         self._lock = threading.Lock()
         self._inflight: Dict[str, int] = {}  # replica name -> in-flight
+        self._sub: Optional[_ReplicaSet] = None  # the set this handle follows
+        self._closed = False
 
     def __reduce__(self):
         return (DeploymentHandle,
@@ -170,7 +174,13 @@ class DeploymentHandle:
                                 self._stream, self._idempotent)
 
     def _refresh_replicas(self, force: bool = False):
-        _replica_set(self.deployment_name).ensure(force)
+        rs = _replica_set(self.deployment_name)
+        with self._lock:
+            if not self._closed and self._sub is not rs:
+                # a set that no open handle followed was not polled: fetch it
+                force = rs.subs.subscribe(rs) or force
+                self._sub = rs
+        rs.ensure(force)
 
     def _pick(self) -> tuple:
         """Power-of-two-choices with queue-length probes: two random
@@ -234,6 +244,18 @@ class DeploymentHandle:
         with self._lock:
             if self._inflight.get(name, 0) > 0:
                 self._inflight[name] -= 1
+
+    def close(self):
+        """Stop following the deployment's replica set (reference:
+        ``ray_tpu/serve/_handle.py:307``): the handle leaves the process's
+        long-poll. As in the reference, a call on a closed handle still
+        routes, from the set last seen (fetched once where there is none),
+        and subscribes nothing."""
+        with self._lock:
+            self._closed = True
+            sub, self._sub = self._sub, None
+        if sub is not None:
+            sub.subs.unsubscribe(sub)
 
     def pick_replica(self) -> tuple:
         """Pick one replica (pow-2 probed, like remote()) and charge an
@@ -325,6 +347,7 @@ class _ReplicaSet:
         self.replicas: List[Any] = []
         self.names: List[str] = []
         self.version = -1
+        self.holders = 0   # open handles that follow this set (subs.lock)
 
     def apply(self, names: List[str], version: int):
         import ray_tpu_torch
@@ -343,9 +366,7 @@ class _ReplicaSet:
             self.version = version
 
     def ensure(self, force: bool = False):
-        """Start the process's long-poll if it is not running; with
-        ``force`` or an empty set, fetch the current set now."""
-        self.subs.start()
+        """With ``force`` or an empty set, fetch the current set now."""
         if force or not self.replicas:
             import ray_tpu_torch
 
@@ -361,8 +382,9 @@ class _ReplicaSet:
 
 class _Subscriptions:
     """Every deployment this process routes to, kept current by ONE
-    background long-poll (``ServeController.poll_replica_sets``): it applies
-    replica-set changes the moment the controller publishes them. The
+    background long-poll (``ServeController.poll_replica_sets``) while an
+    open handle follows it: the poll applies replica-set changes the moment
+    the controller publishes them, and ends when no set has a holder. The
     thread is bound to ONE runtime session — after ray_tpu_torch.shutdown
     (tests, notebooks) it retires instead of polling a dead or unrelated
     cluster, and the next call subscribes afresh in the new session."""
@@ -381,12 +403,21 @@ class _Subscriptions:
                     deployment_name, self)
             return rs
 
-    def start(self):
+    def subscribe(self, rs: _ReplicaSet) -> bool:
+        """One more open handle follows ``rs``; starts the long-poll if it
+        is not running. True when ``rs`` had no holder (its set may be
+        stale)."""
         with self.lock:
+            rs.holders += 1
             if self._poller is None:
                 self._poller = threading.Thread(
                     target=self._poll_loop, daemon=True, name="serve-poll")
                 self._poller.start()
+            return rs.holders == 1
+
+    def unsubscribe(self, rs: _ReplicaSet):
+        with self.lock:
+            rs.holders -= 1
 
     def _poll_loop(self):
         import ray_tpu_torch
@@ -395,7 +426,10 @@ class _Subscriptions:
         try:
             while worker_mod.global_worker is self.worker:
                 with self.lock:
-                    sets = dict(self.sets)
+                    sets = {n: rs for n, rs in self.sets.items() if rs.holders}
+                    if not sets:
+                        self._poller = None   # under the lock: subscribe restarts it
+                        return
                 known = {n: rs.version for n, rs in sets.items()}
                 try:
                     controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
