@@ -4,6 +4,8 @@ every kernel of its main paths.
 
     python3 chip_smoke.py              # one card, every phase below
     python3 chip_smoke.py --ranks 4    # four cards: the mesh path only
+    python3 chip_smoke.py --prefills ROOT   # one card: the serve and llama
+                                       # phases' cold prefills, ROOT's package
 
 Needs one CUDA card (written for an H100) and ``nvcc``; imports nothing of
 JAX or of the JAX package. Phases, in order; any failure raises and the
@@ -12,7 +14,8 @@ script exits non-zero:
   1. device  the card's name and power limit (nvidia-smi)
   2. build   compile ray_tpu_torch/csrc with nvcc, one process per source,
              all at once (timed); show ptxas's register / spill report and
-             fail if a tensor-core (sm90) instance spills
+             fail if a tensor-core (sm90) instance or an instance of the
+             register-tiled fp32 forward spills
   3. kernel  flash_attn_fwd against its plain PyTorch version on the card,
              o and lse, fp32 and bf16, head dims 32, 64 and 128, ragged and
              aligned lengths, bitwise repeatable, with a digest of each
@@ -20,12 +23,15 @@ script exits non-zero:
              kernel, the plain version and SDPA (yardstick only) at the serving and
              training shapes, beside the least time the card could take,
              with the kernel's achieved TFLOP/s, its share of that bound
-             and its ratio to SDPA
+             and its ratio to SDPA; at B = 1 each also as device time from
+             one torch.profiler window; for each timed fp32 shape the tile
+             plan (fwd_block_m) and the kernel's time at every fp32 tile
   4. bwd     flash_attn_bwd's dq and dk/dv kernels against their plain
              version on the card (and, in fp32, against autograd of the
              plain attention), fp32 and bf16, head dims 32, 64 and 128,
              ragged and aligned lengths, bitwise repeatable, with a digest
-             of each gradient; times at the training shapes beside the bound, the plain backward and
+             of each gradient; times at the training shapes (and fp32 at
+             (1, 12, 1024, 64)) beside the bound, the plain backward and
              SDPA's backward (yardstick only), with achieved TFLOP/s,
              share of the bound and ratio to SDPA's backward
   5. model   GPT-2-124M forward at (4, 512) on the card against the same
@@ -350,6 +356,7 @@ Without CUDA it exits 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import json
@@ -393,14 +400,20 @@ TRAIN_REL_TOL = 1e-4
 
 # correctness cases (every one in fp32 and bf16): GPT-2's head dim at
 # ragged and aligned lengths, and the kernels' other head dims, 32 and 128
-KERNEL_SHAPES = ([(1, 12, t, 64) for t in (1, 7, 100, 512, 1024)] + [(2, 4, 128, 32)]
+KERNEL_SHAPES = ([(1, 12, t, 64) for t in (1, 7, 100, 150, 512, 600, 1024)]
+                 + [(2, 4, 128, 32)]
                  + [(1, 4, t, d) for d in (32, 128) for t in (1, 7, 100, 512)])
 TRAIN_SHAPE = (16, 12, 1024, 64)   # GPT-2-124M attention at B = 16, T = 1024
-# (shape, dtype) pairs timed: the serving widths (fp32 and bf16 prompts) and
-# the training shapes (bf16, as the bf16 train step gives them)
-TIMED_FWD = [((1, 12, t, 64), dt) for t in (512, 1024)
-             for dt in (torch.float32, torch.bfloat16)] + [(TRAIN_SHAPE, torch.bfloat16)]
-TIMED_BWD = [((1, 12, 1024, 64), torch.bfloat16), (TRAIN_SHAPE, torch.bfloat16)]
+# (shape, dtype) pairs timed: the serving widths (fp32 prompts of the serve
+# phase's median-ish and longest lengths, 150 and 600, and 512 and 1024; bf16
+# at 512 and 1024) and the training shapes (bf16, as the bf16 train step
+# gives them); the fp32 backward at one B = 1 shape (the fp32 parity steps)
+TIMED_FWD = ([((1, 12, t, 64), torch.float32) for t in (150, 512, 600, 1024)]
+             + [((1, 12, t, 64), torch.bfloat16) for t in (512, 1024)]
+             + [(TRAIN_SHAPE, torch.bfloat16)])
+TIMED_BWD = [((1, 12, 1024, 64), torch.bfloat16), ((1, 12, 1024, 64), torch.float32),
+             (TRAIN_SHAPE, torch.bfloat16)]
+DEVICE_TIME_TOL = 0.10   # window vs profiler device time: above, PERF.md notes it
 HEADLINE = (TRAIN_SHAPE, torch.bfloat16)  # the training path's shape and type
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and FLOP/s for
@@ -410,7 +423,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # which design runs each kernel, by dtype (csrc/: the entry points choose)
 TENSOR_CORES = "sm90 wgmma+TMA, bf16"
 CUDA_CORES = "CUDA cores, fp32"
-DESIGN = {"flash_attn_fwd": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES},
+REGISTER_TILES = "CUDA cores, fp32, register tiles + cp.async"
+DESIGN = {"flash_attn_fwd": {"bfloat16": TENSOR_CORES, "float32": REGISTER_TILES},
           "flash_attn_bwd_dq": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES},
           "flash_attn_bwd_dkv": {"bfloat16": TENSOR_CORES, "float32": CUDA_CORES}}
 
@@ -420,6 +434,7 @@ TRAIN_BATCH = (16, 1024)      # bench.py's GPT-2-124M batch
 TRAIN_STEPS = 5               # timed steps after one warm-up step
 PARITY_BATCH = (2, 128)       # the fp32 card-vs-CPU step
 SERVE_PROMPT_LENS = (16, 41, 97, 150, 233, 318, 480, 600)
+PREFILL_WARM_LENS = (150, 600)   # --prefills: the warm forward's prompt lengths
 SERVE_MAX_TOKENS = 32
 SHARED_PREFIX = 64
 # layers, heads, KV heads, width, SwiGLU width, vocab, context
@@ -526,6 +541,69 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms(fn, match: str = "", iters: int = 30, warmup: int = 5,
+              attempts: int = 3) -> float:
+    """Device time of one call: the time of the kernels whose name holds
+    ``match`` (every kernel where it is empty) in one torch.profiler window
+    of ``iters`` back-to-back calls, read back with ``read_device_trace``,
+    over ``iters``. Beside ``cuda_ms``, whose event window also holds
+    whatever the host leaves the card idle between calls, this is the
+    card's own time for the work. A window whose trace holds no kernel at
+    all (the profiler has now and then delivered no device event for a
+    window on the H100) is opened again, up to ``attempts`` windows in
+    all."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.train import _telemetry
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            kernel_us = _telemetry.read_device_trace(trace)["kernel_us"]
+        if kernel_us:
+            break
+        log(f"[device_ms] profiler window {attempt} of {attempts} holds no "
+            f"device event")
+    us = sum(v for name, v in kernel_us.items() if match in name)
+    if not us:
+        raise AssertionError(f"the profiler window holds no kernel named "
+                             f"{match!r}: {sorted(kernel_us)}")
+    return us / iters / 1e3
+
+
+def device_times(case, key: str, fn, match: str = "") -> None:
+    """``case[key + "_device"]`` from :func:`device_ms`, and a flag where it
+    differs from the window's ``case[key]`` by more than DEVICE_TIME_TOL."""
+    case[f"{key}_device"] = dev = device_ms(fn, match)
+    if abs(case[key] - dev) > DEVICE_TIME_TOL * dev:
+        case.setdefault("window_vs_device", []).append(key)
+
+
+@contextlib.contextmanager
+def forced_block_m(rows: int):
+    """Within it, the forward's plan gives ``rows`` query rows per block to
+    every fp32 launch (the timed sweep of the fp32 tiles)."""
+    from ray_tpu_torch.ops import attention
+
+    plan = attention.fwd_block_m
+    attention.fwd_block_m = (lambda bh, t, dtype, sms=attention.H100_SMS:
+                             rows if dtype == torch.float32 else plan(bh, t, dtype, sms))
+    try:
+        yield
+    finally:
+        attention.fwd_block_m = plan
 
 
 def reset_counts() -> None:
@@ -696,27 +774,38 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     log(f"[build] {sorted(libs)} in {dt:.1f} s")
     # ptxas reports each instance as "Compiling entry function '<mangled>'"
-    # followed by its spill and register lines: the fp32 CUDA-core kernels
-    # are templates on <float, d>, the bf16 tensor-core ones on <d>
+    # followed by its spill and register lines: the fp32 backward kernels
+    # are templates on <float, d>, the bf16 tensor-core ones on <d>, the
+    # register-tiled fp32 forward on <d, query rows per block>
     entry = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)IfLi(\d+)E")
     entry90 = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E")
-    spills = []
+    entry32 = re.compile(r"(flash_fwd_fp32_kernel)ILi(\d+)ELi(\d+)E")
+    spills, seen = [], set()
     for name in sorted(libs):
         label = name
         for line in _cuda.build_log(name).splitlines():
             found, found90 = entry.search(line), entry90.search(line)
+            found32 = entry32.search(line)
             if found:
                 label = "{}<float, {}>".format(*found.groups())
             elif found90:
                 label = "{}<bf16, {}>".format(*found90.groups())
+            elif found32:
+                label = "{}<d={}, rows={}>".format(*found32.groups())
+                seen.add(label)
             elif "registers" in line or "spill" in line:
                 log(f"[build] {label}: {line.split(':', 1)[-1].strip()}")
-                if "_sm90_" in label and re.search(r"[1-9]\d* bytes spill", line):
+                if (("_sm90_" in label or "_fp32_" in label)
+                        and re.search(r"[1-9]\d* bytes spill", line)):
                     spills.append(f"{label}: {line.strip()}")
-    # the tensor-core designs are sized to keep their accumulators in
-    # registers: a spill is a fault of the build, not a slow path
+    # the tensor-core designs and the fp32 forward's register tiles are sized
+    # to keep their accumulators in registers: a spill is a fault of the
+    # build, not a slow path
     if spills:
-        raise AssertionError(f"tensor-core kernels spill: {spills}")
+        raise AssertionError(f"register-tiled kernels spill: {spills}")
+    if len(seen) != 9:
+        raise AssertionError(f"ptxas reported {len(seen)} fp32 forward instances "
+                             f"(expected 3 head dims x 3 tiles): {sorted(seen)}")
     return dt
 
 
@@ -726,6 +815,7 @@ def phase_kernel(card: str):
     from ray_tpu_torch.ops import attention
 
     gen = torch.Generator().manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
     checked = [(shape, dt) for shape in KERNEL_SHAPES
                for dt in (torch.float32, torch.bfloat16)] + [HEADLINE]
@@ -743,21 +833,50 @@ def phase_kernel(card: str):
         err_o = (o.float() - o_ref).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        b, h, t, _ = shape
         case = {"shape": list(shape), "dtype": dtype_name(dtype),
                 "design": DESIGN["flash_attn_fwd"][dtype_name(dtype)],
+                "block_m": attention.fwd_block_m(b * h, t, dtype, sms),
                 "err_o": err_o, "err_lse": err_lse, "tol": tol,
                 "repeatable": repeatable, "digest": digest(o, lse)}
+        if dtype == torch.float32:
+            # every fp32 tile, not only the plan's: within the tolerance and
+            # bitwise repeatable
+            case["err_by_block_m"] = {}
+            for rows in attention.FP32_BLOCK_MS:
+                with forced_block_m(rows):
+                    of, lf = attention.flash_causal_attention_fwd(q, k, v)
+                    of2, lf2 = attention.flash_causal_attention_fwd(q, k, v)
+                torch.cuda.synchronize()
+                case["err_by_block_m"][rows] = max(
+                    (of - o_ref).abs().max().item(), (lf - lse_ref).abs().max().item())
+                repeatable = repeatable and torch.equal(of, of2) and torch.equal(lf, lf2)
+                del of, lf, of2, lf2
+            case["repeatable"] = repeatable
         if (shape, dtype) in TIMED_FWD:
             bound_ms, bound_by = attention_bound(shape, dtype)
-            case.update(
-                ms=cuda_ms(lambda: attention.flash_causal_attention_fwd(q, k, v)),
-                plain_ms=cuda_ms(lambda: attention.plain_causal_attention_fwd(q, k, v)),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)),
-                bound_ms=bound_ms, bound_by=bound_by)
+            kernel = lambda: attention.flash_causal_attention_fwd(q, k, v)
+            plain = lambda: attention.plain_causal_attention_fwd(q, k, v)
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            case.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                        library_ms=cuda_ms(library), bound_ms=bound_ms, bound_by=bound_by)
             case.update(rates(case["ms"], shape, 4, bound_ms, case["library_ms"]))
+            if b == 1:
+                device_times(case, "ms", kernel, "flash_fwd")
+                device_times(case, "plain_ms", plain)
+                device_times(case, "library_ms", library)
+            if dtype == torch.float32:
+                # every tile's window and device time: the plan's pick
+                # beside the others
+                case["grid"] = [b * h, -(-t // case["block_m"])]
+                case["ms_by_block_m"], case["device_ms_by_block_m"] = {}, {}
+                for rows in attention.FP32_BLOCK_MS:
+                    with forced_block_m(rows):
+                        case["ms_by_block_m"][rows] = cuda_ms(kernel)
+                        case["device_ms_by_block_m"][rows] = device_ms(kernel, "flash_fwd")
         log(f"[kernel] {json.dumps(case)}")
-        if err_o > tol or err_lse > tol or not repeatable:
+        worst = max([err_o, err_lse] + list(case.get("err_by_block_m", {}).values()))
+        if worst > tol or not repeatable:
             raise AssertionError(f"flash_attn_fwd disagrees with its plain "
                                  f"version or is not repeatable: {case}")
         cases.append(case)
@@ -770,6 +889,16 @@ def phase_kernel(card: str):
                 f"{c['bound_by']}); {c['tflops']:.1f} TFLOP/s, "
                 f"{c['bound_share']:.3f} of the bound, {c['vs_library']:.2f}x SDPA "
                 f"on {card}")
+        if "ms_device" in c:
+            log(f"[kernel]   device time (profiler): kernel {c['ms_device']:.4f} ms, "
+                f"plain {c['plain_ms_device']:.4f}, SDPA {c['library_ms_device']:.4f}; "
+                f"window and device differ by over {DEVICE_TIME_TOL:.0%} for "
+                f"{c.get('window_vs_device', [])}")
+        if "ms_by_block_m" in c:
+            log(f"[kernel]   fp32 plan: {c['block_m']} query rows a block, grid "
+                f"{c['grid']} = {c['grid'][0] * c['grid'][1]} blocks on {sms} SMs; "
+                f"ms by rows a block {json.dumps(c['ms_by_block_m'])}, device "
+                f"{json.dumps(c['device_ms_by_block_m'])}")
     return cases
 
 
@@ -819,16 +948,21 @@ def phase_bwd(card: str):
             for kernel, fn in (("dq", attention.launch_bwd_dq),
                                ("dkv", attention.launch_bwd_dkv)):
                 bound_ms, bound_by = attention_bwd_bound(shape, dtype, kernel)
-                case[kernel] = {
-                    "ms": cuda_ms(lambda: fn(q, k, v, do, lse, delta)),
-                    "bound_ms": bound_ms, "bound_by": bound_by}
+                call = lambda fn=fn: fn(q, k, v, do, lse, delta)
+                case[kernel] = {"ms": cuda_ms(call), "bound_ms": bound_ms,
+                                "bound_by": bound_by}
+                if shape[0] == 1:
+                    device_times(case[kernel], "ms", call, f"flash_bwd_{kernel}")
+            plain = lambda: attention.plain_causal_attention_bwd(q, k, v, o, lse, do)
+            library = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                                  retain_graph=True)
             case.update(
                 bwd_ms=cuda_ms(lambda: attention.flash_causal_attention_bwd(
                     q, k, v, o, lse, do)),
-                plain_ms=cuda_ms(lambda: attention.plain_causal_attention_bwd(
-                    q, k, v, o, lse, do)),
-                library_ms=cuda_ms(lambda: torch.autograd.grad(
-                    sdpa_out, (qs, ks, vs), do, retain_graph=True)))
+                plain_ms=cuda_ms(plain), library_ms=cuda_ms(library))
+            if shape[0] == 1:
+                device_times(case, "plain_ms", plain)
+                device_times(case, "library_ms", library)
             for kernel, per_pair in (("dq", 6), ("dkv", 8)):
                 case[kernel].update(rates(case[kernel]["ms"], shape, per_pair,
                                           case[kernel]["bound_ms"], case["library_ms"]))
@@ -852,6 +986,13 @@ def phase_bwd(card: str):
             log(f"[bwd] {c['shape']} {c['dtype']}: whole backward {c['bwd_ms']:.4f} ms, "
                 f"plain {c['plain_ms']:.4f}, SDPA backward {c['library_ms']:.4f} "
                 f"on {card}")
+            if "library_ms_device" in c:
+                log(f"[bwd]   device time (profiler): dq {c['dq']['ms_device']:.4f} ms, "
+                    f"dk/dv {c['dkv']['ms_device']:.4f}, plain "
+                    f"{c['plain_ms_device']:.4f}, SDPA backward "
+                    f"{c['library_ms_device']:.4f}; window and device differ by over "
+                    f"{DEVICE_TIME_TOL:.0%} for "
+                    f"{c.get('window_vs_device', []) + [k for k in ('dq', 'dkv') if c[k].get('window_vs_device')]}")
     torch.cuda.empty_cache()
     return cases
 
@@ -1022,7 +1163,8 @@ def serve_run(card: str, tag: str, adapter):
         raise AssertionError(f"a greedy token is {worst} below the CPU max logit")
     return {"launches": launches, "plain_calls": plain_calls,
             "tokens_per_s": n_tokens / wall, "telemetry": telemetry,
-            "prompts": prompts, "outputs": outputs, "cpu_model": cpu_model}
+            "prompts": prompts, "outputs": outputs, "cpu_model": cpu_model,
+            "prefills": prefills}
 
 
 def phase_serve(card: str):
@@ -4988,6 +5130,8 @@ def main() -> int:
     bwd_head = next(c for c in bwd_cases if "dq" in c and c["shape"] == list(HEADLINE[0])
                     and c["dtype"] == dtype_name(HEADLINE[1]))
 
+    fp32_prompt = next(c for c in fwd_cases if "ms" in c and c["dtype"] == "float32"
+                       and c["shape"] == [1, 12, max(SERVE_PROMPT_LENS), 64])
     at = {"shape": list(HEADLINE[0]), "dtype": dtype_name(HEADLINE[1])}
     # plain attention calls on each full-width path: all must be 0
     plain_calls = {"train": train["plain_calls"], "serve": serve["plain_calls"],
@@ -5055,6 +5199,12 @@ def main() -> int:
         "bound_share": fwd_head["bound_share"],
         "at": dict(at, max_abs_err_over="o and lse, every fp32 case",
                    library="SDPA forward"),
+        # the fp32 design at the serve phase's longest prompt
+        "fp32_prompt": {key: fp32_prompt[key] for key in
+                        ("shape", "design", "block_m", "grid", "ms", "ms_device",
+                         "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "library_ms_device", "bound_share", "ms_by_block_m",
+                         "device_ms_by_block_m")},
         "cases": fwd_cases,
     }]
     for name, kernel, outputs, line in (("flash_attn_bwd_dq", "dq", ("dq",), 114),
@@ -5130,7 +5280,60 @@ def main() -> int:
     return 0
 
 
+def main_prefills(root: str) -> int:
+    """The serve and llama phases' serving runs alone (``serve_run`` on
+    GPT-2-124M and Llama-160M, fp32, with their checks), on the package of
+    the tree at ``root``: this checkout, or an unpacked archive of another
+    commit, so that two commits' cold prefills are timed by the same code on
+    one card (run them parent, change, change, parent). Prints each cold
+    prefill's synchronised ms and a JSON line of them. A cold prefill meets
+    each prompt length once, so its ms also holds first-use costs; beside
+    them, the model's fp32 forward over one prompt of PREFILL_WARM_LENS
+    tokens, warm: window ms (``cuda_ms``), the device's kernel ms of one call
+    (``device_ms``) and the attention kernel's share of it."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
+              "False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(root).resolve()))
+    import ray_tpu_torch
+    from ray_tpu_torch._private.device import set_fp32_policy
+    from ray_tpu_torch.ops import _cuda
+    from ray_tpu_torch.serve.llm.adapters import build_adapter
+
+    set_fp32_policy()
+    card = phase_device()
+    _cuda.build(["flash_attn_fwd"])
+    out = {"package": str(Path(ray_tpu_torch.__file__).parent), "card": card}
+    for tag, model in (("serve", "gpt2"), ("llama", "llama-160m")):
+        adapter = build_adapter(model, seed=0, device=DEVICE)
+        run = serve_run(card, tag, adapter)
+        out[tag] = {"cold_prefill_ms": {n: ms for n, start, ms in run["prefills"]
+                                        if start == 0},
+                    "launches": run["launches"], "plain_calls": run["plain_calls"],
+                    "tokens_per_s": run["tokens_per_s"], "warm_forward": {}}
+        gen = torch.Generator().manual_seed(2)
+        for n in PREFILL_WARM_LENS:
+            idx = torch.randint(0, adapter.cfg.vocab_size, (1, n), generator=gen).to(DEVICE)
+            with torch.inference_mode():
+                forward = lambda: adapter.model(idx)
+                warm = {"ms": cuda_ms(forward, iters=10, warmup=3),
+                        "device_ms": device_ms(forward, iters=10, warmup=3),
+                        "attention_device_ms": device_ms(forward, "flash_fwd",
+                                                         iters=10, warmup=3)}
+            out[tag]["warm_forward"][n] = warm
+            log(f"[{tag}] warm fp32 forward of {n} tokens: {warm['ms']:.3f} ms "
+                f"(device {warm['device_ms']:.3f}, of it attention "
+                f"{warm['attention_device_ms']:.3f}) on {card}")
+        del run, adapter
+        torch.cuda.empty_cache()
+    log(json.dumps({"prefills": out}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ranks":
         sys.exit(main_ranks(int(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--prefills":
+        sys.exit(main_prefills(sys.argv[2]))
     sys.exit(main())

@@ -41,15 +41,46 @@
 //   exponentials (one per visible pair, on special-function units that
 //   retire 16 a clock per SM) are the limit a kernel meets first.
 //
-// float32 -> flash_fwd_kernel, on the CUDA cores. The tensor cores take
-//   fp32 only as TF32 (about three decimal digits), which the port's fp32
-//   policy turns off, so fp32 keeps this design: four threads per query
-//   row that split the head dimension and meet through warp shuffles, K/V
-//   tiles in shared memory read without bank conflicts (the four threads
-//   of a row read four consecutive words; the eight rows of a warp read
-//   the same words, a broadcast), every product in fp32 with q pre-scaled
-//   by 1/sqrt(d). It serves fp32 prompts, where a 1024-token prompt has
-//   about 64 FLOP per fp32 byte, so arithmetic, not HBM, sets its bound.
+// float32 -> flash_fwd_fp32_kernel<D, BM>, register-tiled on the CUDA
+//   cores. The tensor cores take fp32 only as TF32 (about three decimal
+//   digits; 3xTF32 needs a tolerance argument of its own), which the
+//   port's fp32 policy turns off, so every product is an fp32 FMA. It runs
+//   every fp32 prompt of the serving engine (12 launches a cold prefill of
+//   GPT-2-124M, at (1, 12, T <= 1024, 64)).
+//   Bound: 4*d FLOP per visible pair over the CUDA cores' 67 TFLOP/s;
+//   a 1024-token prompt has about 64 FLOP per fp32 byte of q/k/v/o against
+//   the card's 20, so arithmetic, not HBM, sets the least time (0.0241 ms
+//   at (1, 12, 1024, 64)). Before the FMAs reach that rate three things
+//   stand in the way, and the design answers each:
+//   - Shared-memory bandwidth (32 words a clock per SM against 128 FMA
+//     lanes). A block of 128 threads is 16 row groups x 8 key groups; a
+//     thread owns BM/16 query rows (rg, rg+16, ...) by 8 keys (cg, cg+8,
+//     ...) of S and the same rows by d/8 columns of O (4 cg .. 4 cg + 3,
+//     then every 32 on). Both products read 16-byte fragments: per 4-wide
+//     slice of d, BM/16 q rows and 8 k rows feed BM/16 x 8 x 4 FMAs, and per
+//     4 keys, BM/16 P rows and 4 v rows feed as many. Rows of q, k and v sit
+//     in shared memory at a stride of d+4 words, and P at 64+8, so the
+//     row groups and key groups of a warp hit distinct banks (the 8 lanes
+//     of a row group share a row: a broadcast). A row's max and sum meet
+//     through three shuffles among the 8 lanes of its key groups, all in
+//     one warp; P goes through shared memory that only that warp reads.
+//   - Memory latency. The q tile and a two-stage ring of 64-key K and V
+//     tiles arrive by 16-byte cp.async copies (keys and rows past t are
+//     zero-filled); tile j+1 is in flight while tile j's products run.
+//   - A grid too small for 132 SMs at one request's shapes. The grid is
+//     (bh, ceil(t / BM)): blockIdx.x the slice, blockIdx.y the rank of the
+//     q tile counted from the last one, so the heaviest tiles of every
+//     slice launch first. BM (64, 32 or 16 query rows) is chosen by the
+//     host from the launch (ray_tpu_torch/ops/attention.py
+//     `fwd_block_m`): 64 where the grid holds two waves of blocks, 32
+//     where it holds one, else 16, so a short prompt of one request still
+//     spreads over every SM and no 64-row tile walks a long prompt alone
+//     at the end of the launch; K and V, 6.3 MB for 12 heads at t = 1024,
+//     stay in the 50 MB L2 while smaller q tiles read them again.
+//   The softmax works in log2 units (the scale times log2 e, ex2), and
+//   masks only the tiles that cross the diagonal or hold key t-1. The
+//   keys are not split across blocks: each row is one block's, so the
+//   output is bitwise repeatable.
 //
 // Translation from the TPU kernel (both designs):
 //   - The TPU grid walked (bh, t/block_q) in order on one core. Here every
@@ -66,8 +97,8 @@
 //
 // The launch runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (or the tensor map's error)
-// so the Python wrapper can raise on a refused launch. The bf16 path needs
-// 16-byte-aligned q, k and v (TMA); the wrapper checks.
+// so the Python wrapper can raise on a refused launch. Both paths need
+// 16-byte-aligned q, k and v (TMA, cp.async); the wrapper checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,136 +108,7 @@
 
 namespace {
 
-constexpr int kBlockM = 64;                  // query rows per thread block
-constexpr int kBlockN = 32;                  // keys per shared-memory tile
-constexpr int kThreadsPerRow = 4;            // threads sharing one query row
-constexpr int kThreads = kBlockM * kThreadsPerRow;
 constexpr float kNegInf = -1e30f;            // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int t, float scale) {
-  static_assert(D % kThreadsPerRow == 0, "head dim must split over a row");
-  constexpr int kPerThread = D / kThreadsPerRow;
-  __shared__ float ks[kBlockN][D];
-  __shared__ float vs[kBlockN][D];
-
-  const int tid = threadIdx.x;
-  const int row = tid / kThreadsPerRow;
-  const int lane = tid % kThreadsPerRow;  // element e*4+lane of a row is ours
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int q0 = q_tile * kBlockM;
-  const int qi = q0 + row;
-  const bool live = qi < t;
-  const size_t base = static_cast<size_t>(blockIdx.y) * t * D;
-
-  float qr[kPerThread];
-  float acc[kPerThread];
-#pragma unroll
-  for (int e = 0; e < kPerThread; ++e) {
-    const size_t at = base + static_cast<size_t>(qi) * D + e * kThreadsPerRow + lane;
-    qr[e] = live ? to_float(q[at]) * scale : 0.f;
-    acc[e] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  // causal: this q tile sees keys [0, min(t, q0 + kBlockM))
-  const int kv_end = min(t, q0 + kBlockM);
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockN) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < kBlockN * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      const int kj = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kj < t) {
-        const size_t at = base + static_cast<size_t>(kj) * D + c;
-        kx = to_float(k[at]);
-        vx = to_float(v[at]);
-      }
-      ks[r][c] = kx;
-      vs[r][c] = vx;
-    }
-    __syncthreads();
-
-    float s[kBlockN];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < kPerThread; ++e) {
-        part = fmaf(qr[e], ks[j][e * kThreadsPerRow + lane], part);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kj = k0 + j;
-      s[j] = (kj <= qi && kj < t) ? part : kNegInf;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // key 0 is in the first tile and visible to every row, so m is finite
-    // from the first tile on and exp(-1e30 - m) underflows to exactly 0
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int e = 0; e < kPerThread; ++e) acc[e] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int e = 0; e < kPerThread; ++e) {
-        acc[e] = fmaf(p, vs[j][e * kThreadsPerRow + lane], acc[e]);
-      }
-    }
-    m = m_new;
-  }
-
-  if (live) {
-#pragma unroll
-    for (int e = 0; e < kPerThread; ++e) {
-      const size_t at = base + static_cast<size_t>(qi) * D + e * kThreadsPerRow + lane;
-      o[at] = from_float<T>(acc[e] / l);
-    }
-    if (lane == 0) {
-      lse[static_cast<size_t>(blockIdx.y) * t + qi] = m + logf(l);
-    }
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int bh, int t, cudaStream_t stream) {
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const dim3 grid((t + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      t, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_dim(const void* q, const void* k, const void* v, void* o,
-                 void* lse, int bh, int t, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma with TMA-fed tiles
@@ -461,20 +363,315 @@ int dispatch_sm90(const void* q, const void* k, const void* v, void* o, void* ls
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: register tiles on the CUDA cores, cp.async-fed tiles
+
+constexpr int kThreads32 = 128;
+constexpr int kRowGroups = 16;               // a thread's rows: rg + 16 r
+constexpr int kKeyGroups = 8;                // its keys: cg + 8 i
+constexpr int kN32 = 64;                     // keys per K/V tile
+constexpr int kKeys32 = kN32 / kKeyGroups;   // keys of S per thread
+
+// Shared memory, in floats: the q tile, two stages of K and V, P. Rows of
+// q, k and v are d+4 floats apart and rows of P 64+8: 16-byte fragments of
+// consecutive rows start 4 (q, k) or 8 (P) banks apart, so the 4 row groups
+// and the 8 key groups of a warp read without bank conflicts.
+template <int D, int BM>
+struct Fp32Smem {
+  static constexpr int kRow = D + 4;
+  static constexpr int kPRow = kN32 + 8;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + BM * kRow;
+  static constexpr int kV = kK + 2 * kN32 * kRow;
+  static constexpr int kP = kV + 2 * kN32 * kRow;
+  static constexpr int kBytes = 4 * (kP + BM * kPRow);
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+  // blocks an SM holds (228 KB of shared memory, 1 KB reserved a block),
+  // at most 4: given to ptxas as the occupancy to aim for, so that it
+  // spends the registers that allows (at least 128 a thread) instead of
+  // spilling for an occupancy shared memory never lets it reach
+  static constexpr int kFit = 233472 / (kBytes + 1024);
+  static constexpr int kBlocksPerSm = kFit < 4 ? kFit : 4;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  // src-size 0 reads nothing and zero-fills the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows r0 .. r0+R-1 of one (t, D) slice into shared memory at dst (rows D+4
+// floats apart); rows past t arrive as zeros. Thread i copies chunk i % (D/4)
+// of rows i / (D/4), then every 128 / (D/4) rows on: its shared address
+// moves by a constant each pass, so the copy holds one offset, not one a pass.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* src, int r0, int t) {
+  constexpr int kChunks = D / 4;                    // 16-byte chunks a row
+  constexpr int kPassRows = kThreads32 / kChunks;   // rows a pass of the block copies
+  static_assert(kThreads32 % kChunks == 0 && R % kPassRows == 0, "whole rows a pass");
+  const int r = r0 + threadIdx.x / kChunks;
+  const int c = threadIdx.x % kChunks;
+  dst += 4 * ((threadIdx.x / kChunks) * (D + 4) + 4 * c);
+  src += 4 * c;
+#pragma unroll
+  for (int pass = 0; pass < R / kPassRows; ++pass) {
+    const int row = r + pass * kPassRows;
+    const bool in = row < t;
+    cp_async16(dst + 4 * pass * kPassRows * (D + 4),
+               src + static_cast<size_t>(in ? row : 0) * D, in);
+  }
+}
+
+// K/V tile j (keys j*64 ..) into stage j % 2
+template <int D, int BM>
+__device__ __forceinline__ void load_kv(uint32_t base, const float* kh, const float* vh,
+                                        int j, int t) {
+  using S = Fp32Smem<D, BM>;
+  const int s = j & 1;
+  load_rows<D, kN32>(base + 4 * (S::kK + s * kN32 * S::kRow), kh, j * kN32, t);
+  load_rows<D, kN32>(base + 4 * (S::kV + s * kN32 * S::kRow), vh, j * kN32, t);
+}
+
+template <int D, int BM>
+__global__ void __launch_bounds__(kThreads32, (Fp32Smem<D, BM>::kBlocksPerSm))
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int t, float scale_log2) {
+  using S = Fp32Smem<D, BM>;
+  constexpr int TM = BM / kRowGroups;    // query rows a thread
+  constexpr int kCols = D / 32;          // 4-wide column chunks of O a thread
+  constexpr int kRow = S::kRow;
+  constexpr int kPRow = S::kPRow;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const uint32_t base = sm90::smem_u32(smem);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rg = warp * 4 + lane / 8;    // 4 row groups a warp
+  const int cg = lane % 8;               // 8 key groups, one row group's lanes
+  const size_t head = static_cast<size_t>(blockIdx.x) * t;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest tiles first
+  const float* kh = k + head * D;
+  const float* vh = v + head * D;
+  // causal: this q tile sees keys [0, min(t, q0 + BM))
+  const int n_tiles = (min(t, q0 + BM) + kN32 - 1) / kN32;
+
+  load_rows<D, BM>(base + 4 * S::kQ, q + head * D, q0, t);
+  load_kv<D, BM>(base, kh, vh, 0, t);
+  cp_async_commit();
+
+  const float* qs = smem + S::kQ;
+  float* ps = smem + S::kP;
+  float acc[TM][4 * kCols];
+  float m[TM], l[TM];                    // running max (log2 units), partial sum
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * kCols; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // tile j+1 into the other stage, freed by the barrier that ended j-1
+    if (j + 1 < n_tiles) {
+      load_kv<D, BM>(base, kh, vh, j + 1, t);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // every thread's copies of tile j (and q) have landed
+    const float* ks = smem + S::kK + (j & 1) * kN32 * kRow;
+    const float* vs = smem + S::kV + (j & 1) * kN32 * kRow;
+
+    // S = q k^T: rows rg + 16 r, keys cg + 8 i
+    float s[TM][kKeys32];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int i = 0; i < kKeys32; ++i) s[r][i] = 0.f;
+#pragma unroll
+    for (int dc = 0; dc < D; dc += 4) {
+      float4 qf[TM], kf[kKeys32];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        qf[r] = *reinterpret_cast<const float4*>(qs + (rg + kRowGroups * r) * kRow + dc);
+#pragma unroll
+      for (int i = 0; i < kKeys32; ++i)
+        kf[i] = *reinterpret_cast<const float4*>(ks + (cg + kKeyGroups * i) * kRow + dc);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int i = 0; i < kKeys32; ++i) {
+          s[r][i] = fmaf(qf[r].x, kf[i].x, s[r][i]);
+          s[r][i] = fmaf(qf[r].y, kf[i].y, s[r][i]);
+          s[r][i] = fmaf(qf[r].z, kf[i].z, s[r][i]);
+          s[r][i] = fmaf(qf[r].w, kf[i].w, s[r][i]);
+        }
+    }
+
+    // scale (in log2 units), mask the tiles that cross the diagonal or
+    // hold key t-1, the online softmax, P into this warp's rows of ps
+    const int k0 = j * kN32;
+    const bool masked = k0 + kN32 - 1 > q0 || k0 + kN32 > t;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int qi = q0 + rg + kRowGroups * r;
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < kKeys32; ++i) {
+        float x = s[r][i] * scale_log2;
+        if (masked) {
+          const int kj = k0 + cg + kKeyGroups * i;
+          if (kj > qi || kj >= t) x = kNegInf;
+        }
+        s[r][i] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      // key 0 is in the first tile and visible to every row, so m is finite
+      // from the first tile on and ex2(-1e30 - m) is exactly 0
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = sm90::ex2(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kKeys32; ++i) {
+        const float p = sm90::ex2(s[r][i] - m_new);
+        sum += p;
+        ps[(rg + kRowGroups * r) * kPRow + cg + kKeyGroups * i] = p;
+      }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < 4 * kCols; ++c) acc[r][c] *= alpha;
+    }
+    __syncwarp();      // a row's P is written and read by its row group's lanes
+
+    // O += P v: rows rg + 16 r, columns 4 cg + 32 c .. + 3
+#pragma unroll
+    for (int jc = 0; jc < kN32; jc += 4) {
+      float4 pf[TM];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        pf[r] = *reinterpret_cast<const float4*>(ps + (rg + kRowGroups * r) * kPRow + jc);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float4 vf[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          vf[c] = *reinterpret_cast<const float4*>(vs + (jc + jj) * kRow + 4 * cg + 32 * c);
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float p = jj == 0 ? pf[r].x : jj == 1 ? pf[r].y : jj == 2 ? pf[r].z : pf[r].w;
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            acc[r][4 * c] = fmaf(p, vf[c].x, acc[r][4 * c]);
+            acc[r][4 * c + 1] = fmaf(p, vf[c].y, acc[r][4 * c + 1]);
+            acc[r][4 * c + 2] = fmaf(p, vf[c].z, acc[r][4 * c + 2]);
+            acc[r][4 * c + 3] = fmaf(p, vf[c].w, acc[r][4 * c + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // tile j's stage and P are free for the next writes
+  }
+
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 4);
+    const int qi = q0 + rg + kRowGroups * r;
+    if (qi >= t) continue;
+    float* out = o + (head + qi) * D + 4 * cg;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      *reinterpret_cast<float4*>(out + 32 * c) =
+          make_float4(acc[r][4 * c] / lr, acc[r][4 * c + 1] / lr,
+                      acc[r][4 * c + 2] / lr, acc[r][4 * c + 3] / lr);
+    }
+    // lse in natural log: ln(sum 2^x) = (m + log2 l) ln 2
+    if (cg == 0) lse[head + qi] = (m[r] + log2f(lr)) * kLn2;
+  }
+}
+
+template <int D, int BM>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
+                int bh, int t, cudaStream_t stream) {
+  using S = Fp32Smem<D, BM>;
+  const int n_tiles = (t + BM - 1) / BM;
+  if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // above the default 48 KB of dynamic shared memory
+  const int rc = static_cast<int>(cudaFuncSetAttribute(
+      flash_fwd_fp32_kernel<D, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kBytes));
+  if (rc != 0) return rc;
+  const float scale_log2 =
+      static_cast<float>(sm90::kLog2e / sqrt(static_cast<double>(D)));
+  const dim3 grid(bh, n_tiles);
+  flash_fwd_fp32_kernel<D, BM><<<grid, kThreads32, S::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
+      t, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_fp32_rows(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int t, int block_m, cudaStream_t stream) {
+  switch (block_m) {
+    case 64: return launch_fp32<D, 64>(q, k, v, o, lse, bh, t, stream);
+    case 32: return launch_fp32<D, 32>(q, k, v, o, lse, bh, t, stream);
+    case 16: return launch_fp32<D, 16>(q, k, v, o, lse, bh, t, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int dispatch_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
+                  int bh, int t, int d, int block_m, cudaStream_t stream) {
+  switch (d) {
+    case 32: return dispatch_fp32_rows<32>(q, k, v, o, lse, bh, t, block_m, stream);
+    case 64: return dispatch_fp32_rows<64>(q, k, v, o, lse, bh, t, block_m, stream);
+    case 128: return dispatch_fp32_rows<128>(q, k, v, o, lse, bh, t, block_m, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. block_m: query rows per block, from the
+// host's plan (ray_tpu_torch/ops/attention.py `fwd_block_m`): 64, 32 or 16
+// for float32, 128 (the bf16 design's two warpgroups) for bfloat16.
+// Returns a cudaError_t (0 = launched).
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int t, int d, int dtype, void* stream) {
+                   void* lse, int bh, int t, int d, int dtype, int block_m,
+                   void* stream) {
   if (bh <= 0 || bh > 65535 || t <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_dim<float>(q, k, v, o, lse, bh, t, d, s);
-    case 1: return dispatch_sm90(q, k, v, o, lse, bh, t, d, s);
+    case 0: return dispatch_fp32(q, k, v, o, lse, bh, t, d, block_m, s);
+    case 1:
+      if (block_m != kM90) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_sm90(q, k, v, o, lse, bh, t, d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -42,8 +42,15 @@ Inside the C entry points the kernel is chosen by the dtype, one kernel per
 dtype: bfloat16 runs the forward, dq and dk/dv on the tensor cores (wgmma
 on TMA-fed tiles); float32, which the tensor cores take only as TF32
 (turned off by the port's fp32 policy), runs on the CUDA cores in fp32.
-TMA needs 16-byte-aligned tensors, so every kernel input must start on a
-16-byte boundary (a freshly allocated tensor does).
+TMA and cp.async need 16-byte-aligned tensors, so every kernel input must
+start on a 16-byte boundary (a freshly allocated tensor does).
+
+The forward's tile plan is chosen here, from the launch, and passed to the
+C entry point: :func:`fwd_block_m` gives the query rows per thread block
+(the bf16 design's fixed 128; for fp32 64, 32 or 16, the largest whose
+grid holds enough waves of blocks, so that one request's prompt still
+spreads over every SM), and :func:`fwd_tiles` lists the blocks in launch
+order, as the kernel maps them (heaviest q tiles of every slice first).
 
 The gradient is :class:`FlashCausalAttention`, the counterpart of the JAX
 package's ``custom_vjp`` around ``_flash``: the forward saves q, k, v, o
@@ -54,6 +61,7 @@ under ``torch.inference_mode`` while serving) nothing is saved.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -73,10 +81,21 @@ PLAIN_ATTENTION_CALLS = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-# (b, h) slices per launch: at most 65535 (the grid's second axis), and a
-# multiple of 4 so that every chunk's fp32 lse and delta rows, like its
-# q/k/v/do tiles, start on a 16-byte boundary
+# (b, h) slices per launch: at most 65535 (a grid axis), and a multiple of 4
+# so that every chunk's fp32 lse and delta rows, like its q/k/v/do tiles,
+# start on a 16-byte boundary
 _CHUNK_BH = 65532
+# query rows per block of the forward: the bf16 design's two warpgroups of
+# 64; the fp32 design's tiles, largest first, each with the blocks per SM
+# its grid must hold to be chosen. Measured on the H100 (PERF.md §6):
+# a 64-row block walks the longest K/V range, so its heaviest tiles end the
+# launch alone unless two waves of blocks stand behind them; 32 rows win
+# from one wave up (one request's prompt of 512-1024 tokens, 12 heads); 16
+# rows spread a short prompt over every SM.
+BF16_BLOCK_M = 128
+FP32_TILES = ((64, 2), (32, 1), (16, 0))
+FP32_BLOCK_MS = tuple(rows for rows, _ in FP32_TILES)
+H100_SMS = 132
 
 
 def kernel_head_dim(d: int) -> int:
@@ -88,6 +107,35 @@ def kernel_head_dim(d: int) -> int:
             return size
     raise ValueError(f"the attention kernels take head dims up to "
                      f"{_KERNEL_HEAD_DIMS[-1]}, got {d}")
+
+
+def fwd_block_m(bh: int, t: int, dtype, sms: int = H100_SMS) -> int:
+    """Query rows per thread block of the forward kernel for ``bh`` (b, h)
+    slices of ``t`` rows on a card of ``sms`` SMs: 128 for bfloat16; for
+    float32 the first tile of :data:`FP32_TILES` whose grid, bh x
+    ceil(t / rows) blocks, holds its waves of ``sms`` blocks. Larger tiles
+    read each K/V tile for more rows; smaller ones spread one request's
+    prompt (B = 1) over every SM and shorten the heaviest tile's walk."""
+    if dtype == torch.bfloat16:
+        return BF16_BLOCK_M
+    return next(rows for rows, waves in FP32_TILES
+                if bh * -(-t // rows) >= waves * sms)
+
+
+def fwd_tiles(bh: int, t: int, block_m: int) -> torch.Tensor:
+    """The forward kernel's blocks in launch order, as it maps them: a
+    (blocks, 4) int64 tensor of (slice, first row, row past the last, key
+    past the last) per block. The grid is (bh, ceil(t / block_m)), blockIdx.x
+    the slice and blockIdx.y the rank of the q tile counted from the last
+    one, and blocks launch with x fastest: every slice's heaviest tile, then
+    every slice's next. A block sees keys [0, min(t, q0 + block_m)), every
+    key of its causal rows, none split off to another block."""
+    n_tiles = -(-t // block_m)
+    rank, slice_ = torch.meshgrid(torch.arange(n_tiles), torch.arange(bh),
+                                  indexing="ij")
+    q0 = (n_tiles - 1 - rank.reshape(-1)) * block_m
+    stop = torch.clamp(q0 + block_m, max=t)
+    return torch.stack([slice_.reshape(-1), q0, stop, stop], dim=1)
 
 
 def _pad_head(x, size: int, factor: float = 1.0):
@@ -168,7 +216,8 @@ def _kernel():
 
     lib = _cuda.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # q, k, v, o, lse; bh, t, d, dtype, block_m; stream
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.flash_attn_fwd_error_string
     err.argtypes = [ctypes.c_int]
@@ -219,7 +268,8 @@ def _check_kernel_inputs(q, k, v) -> None:
 def _check_aligned(name, x) -> None:
     if x.data_ptr() % 16:
         raise ValueError(f"the attention kernels need {name} to start on a "
-                         f"16-byte boundary (TMA), got address {x.data_ptr():#x}")
+                         f"16-byte boundary (TMA, cp.async), got address "
+                         f"{x.data_ptr():#x}")
 
 
 def _check_rows(name, x, q) -> None:
@@ -253,10 +303,8 @@ def _chunks(bh: int):
 
 def _slices(x, start: int, count: int):
     """Rows [start, start + count) of ``x`` viewed as (B * H, ...): a
-    contiguous view, checked to start on a 16-byte boundary (TMA)."""
-    part = x.reshape((-1,) + tuple(x.shape[2:]))[start:start + count]
-    _check_aligned("a chunk", part)
-    return part
+    contiguous view."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))[start:start + count]
 
 
 def _kernel_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -266,22 +314,42 @@ def _kernel_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     fn, err = _kernel()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    FLASH_FWD_LAUNCHES += _launch("flash_attn_fwd", fn, err, [q, k, v], [o, lse])
+    sms = _sm_count(q.device)
+    FLASH_FWD_LAUNCHES += _launch(
+        "flash_attn_fwd", fn, err, [q, k, v], [o, lse],
+        lambda n: (fwd_block_m(n, t, q.dtype, sms),))
     return o, lse
 
 
-def _launch(name, fn, err, inputs, outputs) -> int:
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@contextlib.contextmanager
+def _on_card(q):
+    """q's card as the current device; yields its current stream's handle."""
+    with torch.cuda.device(q.device):
+        yield torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _launch(name, fn, err, inputs, outputs, extra=lambda n: ()) -> int:
     """Launch a kernel over every chunk of (b, h) slices, its arguments the
-    chunks' pointers then (b*h, t, d, dtype, stream); returns the number of
-    launches."""
+    chunks' pointers, then (b*h, t, d, dtype), then ``extra(b*h)``, then the
+    stream; returns the number of launches."""
     q = inputs[0]
     b, h, t, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on_card(q) as stream:
         chunks = _chunks(b * h)
         for start, n in chunks:
-            ptrs = [_slices(x, start, n).data_ptr() for x in inputs + outputs]
-            rc = fn(*ptrs, n, t, d, _KERNEL_DTYPES[q.dtype], stream)
+            # one chunk is the whole of each tensor: no views to make, which
+            # cost the host more than a short kernel takes
+            parts = (inputs + outputs if len(chunks) == 1
+                     else [_slices(x, start, n) for x in inputs + outputs])
+            for x in parts:
+                _check_aligned("a chunk", x)
+            ptrs = [x.data_ptr() for x in parts]
+            rc = fn(*ptrs, n, t, d, _KERNEL_DTYPES[q.dtype], *extra(n), stream)
             if rc != 0:
                 raise RuntimeError(f"{name} launch failed: "
                                    f"{err(rc).decode()} (cudaError {rc})")

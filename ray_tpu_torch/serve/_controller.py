@@ -270,16 +270,20 @@ class ServeController:
             for rname in list(st["replicas"]):
                 rec = st["replicas"][rname]
                 pushed = self._metrics.get(rname)
-                stale = (
-                    (pushed is None and now - rec["created"] > 20.0)
-                    or (pushed is not None and now - pushed[0] > 6.0)
-                    or (pushed is not None and not pushed[1].get("healthy", True))
-                )
-                if stale and pushed is None and self._actor_pending(rname):
-                    # Still waiting for resources (e.g. the cluster
-                    # autoscaler is booting a node): not a failure — killing
-                    # it would flap the pending demand forever.
+                if pushed is not None:
+                    stale = now - pushed[0] > 6.0 or not pushed[1].get("healthy", True)
+                elif now - rec["created"] <= 20.0:
                     continue
+                elif self._actor_pending(rname):
+                    # Still waiting for resources (e.g. the cluster
+                    # autoscaler is booting a node) or still in its
+                    # constructor (a model's build can outlast the grace):
+                    # not a failure — killing it would flap forever. The
+                    # first push's grace counts from the last such sighting.
+                    rec["pending_at"] = now
+                    continue
+                else:
+                    stale = now - rec.get("pending_at", rec["created"]) > 20.0
                 if stale:
                     logger.warning("replica %s unhealthy; replacing", rname)
                     st["replicas"].pop(rname, None)
@@ -353,7 +357,8 @@ class ServeController:
 
     @staticmethod
     def _actor_pending(replica_name: str) -> bool:
-        """True while the named replica actor is still awaiting placement."""
+        """True while the named replica actor is still awaiting placement
+        or running its constructor (it is ALIVE only once that returns)."""
         try:
             from ray_tpu_torch._private import worker as worker_mod
 

@@ -211,14 +211,13 @@ def test_llama_loss_fn_matches_jax_on_each_models_logits(llama_pair, pos_offset)
 # ------------------------------------------------------ publish_report_summary
 
 @pytest.fixture
-def drained():
-    """Both metric tables drained, and their earlier deltas put back
-    afterwards (one xdist worker runs many files)."""
-    saved = {m: m.drain_records() for m in (jmetrics, tmetrics)}
-    yield
-    for m, records in saved.items():
-        m.drain_records()
-        m.restore_records(records)
+def drained(monkeypatch):
+    """Both metric tables empty for the test, and put back afterwards: one
+    xdist worker runs many files, and a gauge that an earlier test set
+    keeps its count and the help text it was first set with, which a
+    drain does not reset."""
+    for m in (jmetrics, tmetrics):
+        monkeypatch.setattr(m, "_records", {})
 
 
 def _gauges(m, run):
